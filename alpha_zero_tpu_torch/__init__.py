@@ -1,0 +1,19 @@
+"""alpha_zero_tpu_torch — the PyTorch/CUDA port of ``alpha_zero_tpu``.
+
+Mirrors the layout and names of the JAX package module for module, so each
+function's counterpart is found under the same path:
+
+- ``envs``     — batched Go engine over tensors with a leading batch dim.
+- ``models``   — the policy/value ResNet as an ``nn.Module``, plus a loader
+  for Flax weights.
+- ``ops``      — hand-written CUDA kernels (``csrc/``), their build, their
+  wrappers and plain PyTorch versions.
+- ``search``   — batched MCTS over fixed-capacity array trees.
+- ``training`` — the batched self-play step.
+
+The package imports torch and numpy only — never JAX, Flax or the JAX
+package. Entry points run on ``device="cuda"`` unless the caller asks for
+``"cpu"``.
+"""
+
+__version__ = "0.1.0"

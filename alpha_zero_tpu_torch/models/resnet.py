@@ -1,0 +1,176 @@
+"""AlphaZero policy/value ResNet as a PyTorch module.
+
+The port of ``alpha_zero_tpu.models.resnet.AlphaZeroNet``: conv stem (3x3,
+padding 1; padding 3 for Gomoku) -> K residual blocks (Conv3x3-BN-ReLU x2 +
+skip) -> policy head (1x1 conv to 2ch -> BN -> ReLU -> FC) and value head
+(1x1 conv to 1ch -> BN -> ReLU -> FC -> ReLU -> FC(1) -> tanh).
+
+The public call takes the JAX package's layout — NHWC int8 planes — and
+permutes to NCHW inside. The heads flatten in HWC order, as the Flax net
+does, so Flax Dense kernels load without permuting (``params_from_flax``).
+Inference in bf16 mirrors Flax ``dtype=bfloat16``: the module's parameters
+are bf16, logits are cast to f32 and tanh of the value is taken in f32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from alpha_zero_tpu_torch.utils.device import resolve_device
+
+_BN_EPS = 1e-5       # Flax BatchNorm's default epsilon
+_BN_MOMENTUM = 0.1   # Flax momentum=0.9 (weight of the old running stat)
+
+
+class NetworkOutputs(NamedTuple):
+    pi_logits: torch.Tensor  # f32[B, num_actions]
+    value: torch.Tensor      # f32[B] in [-1, 1], current player's perspective
+
+
+def _conv(cin: int, cout: int, k: int, pad: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, padding=pad, bias=False)
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+
+
+class ResNetBlock(nn.Module):
+    """Basic residual block."""
+
+    def __init__(self, num_filters: int) -> None:
+        super().__init__()
+        self.conv1 = _conv(num_filters, num_filters, 3, 1)
+        self.bn1 = _bn(num_filters)
+        self.conv2 = _conv(num_filters, num_filters, 3, 1)
+        self.bn2 = _bn(num_filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return torch.relu(y + x)
+
+
+class AlphaZeroNet(nn.Module):
+    """Policy + value network over stacked board planes."""
+
+    def __init__(self, num_actions: int, board_size: int, num_planes: int,
+                 num_res_blocks: int = 10, num_filters: int = 128,
+                 num_fc_units: int = 128, gomoku: bool = False) -> None:
+        super().__init__()
+        pad = 3 if gomoku else 1  # padding-3 stem fixes Gomoku edge blindness
+        side = board_size + 2 * pad - 2  # spatial size after the stem
+        self.stem_conv = _conv(num_planes, num_filters, 3, pad)
+        self.stem_bn = _bn(num_filters)
+        self.blocks = nn.ModuleList(
+            ResNetBlock(num_filters) for _ in range(num_res_blocks))
+        self.policy_conv = _conv(num_filters, 2, 1, 0)
+        self.policy_bn = _bn(2)
+        self.policy_fc = nn.Linear(2 * side * side, num_actions)
+        self.value_conv = _conv(num_filters, 1, 1, 0)
+        self.value_bn = _bn(1)
+        self.value_fc1 = nn.Linear(side * side, num_fc_units)
+        self.value_fc2 = nn.Linear(num_fc_units, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Kaiming-uniform weights U(+-sqrt(6 / fan_in)), zero biases, BN
+        at identity — the Flax net's initializers."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                    fan_in = m.weight[0].numel()
+                    bound = math.sqrt(6.0 / fan_in)
+                    w = torch.rand(m.weight.shape, generator=generator) * (2 * bound) - bound
+                    m.weight.copy_(w)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, nn.BatchNorm2d):
+                    m.reset_parameters()
+
+    @staticmethod
+    def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, x: torch.Tensor) -> NetworkOutputs:
+        """x: [B, N, N, C] board planes (NHWC, any dtype)."""
+        dtype = self.stem_conv.weight.dtype
+        x = x.permute(0, 3, 1, 2).to(dtype)
+        y = torch.relu(self.stem_bn(self.stem_conv(x)))
+        for block in self.blocks:
+            y = block(y)
+
+        p = torch.relu(self.policy_bn(self.policy_conv(y)))
+        pi_logits = self.policy_fc(self._flatten_hwc(p))
+
+        v = torch.relu(self.value_bn(self.value_conv(y)))
+        v = torch.relu(self.value_fc1(self._flatten_hwc(v)))
+        v = self.value_fc2(v)
+        value = torch.tanh(v.float()).squeeze(-1)
+        return NetworkOutputs(pi_logits=pi_logits.float(), value=value)
+
+
+def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0) -> AlphaZeroNet:
+    """The net for an (EnvConfig, NetworkConfig) pair, with random weights
+    drawn from ``seed``, in eval mode, in the config's inference dtype."""
+    dev = resolve_device(device)
+    net = AlphaZeroNet(
+        num_actions=env_cfg.num_actions,
+        board_size=env_cfg.board_size,
+        num_planes=env_cfg.num_planes,
+        num_res_blocks=net_cfg.num_res_blocks,
+        num_filters=net_cfg.num_filters,
+        num_fc_units=net_cfg.num_fc_units,
+        gomoku=net_cfg.gomoku,
+    )
+    net.reset_parameters(torch.Generator().manual_seed(seed))
+    dtype = getattr(torch, net_cfg.inference_dtype)
+    return net.to(device=dev, dtype=dtype).eval()
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    """Flax conv kernel HWIO -> torch OIHW."""
+    return torch.from_numpy(np.array(np.transpose(kernel, (3, 2, 0, 1))))
+
+
+def _dense(prefix: str, p: dict, out: dict) -> None:
+    """Flax Dense ``[in, out]`` kernel -> ``Linear.weight = kernel.T``."""
+    out[prefix + ".weight"] = torch.from_numpy(np.array(np.asarray(p["kernel"]).T))
+    out[prefix + ".bias"] = torch.from_numpy(np.array(p["bias"]))
+
+
+def _batchnorm(prefix: str, p: dict, s: dict, out: dict) -> None:
+    out[prefix + ".weight"] = torch.from_numpy(np.array(p["scale"]))
+    out[prefix + ".bias"] = torch.from_numpy(np.array(p["bias"]))
+    out[prefix + ".running_mean"] = torch.from_numpy(np.array(s["mean"]))
+    out[prefix + ".running_var"] = torch.from_numpy(np.array(s["var"]))
+    out[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def params_from_flax(variables_np: dict) -> dict:
+    """The Flax ``{"params", "batch_stats"}`` tree (numpy leaves) of the
+    JAX package's ``AlphaZeroNet`` as this module's ``state_dict``."""
+    params, stats = variables_np["params"], variables_np["batch_stats"]
+    out: dict = {}
+    out["stem_conv.weight"] = _conv_weight(params["Conv_0"]["kernel"])
+    _batchnorm("stem_bn", params["BatchNorm_0"], stats["BatchNorm_0"], out)
+    i = 0
+    while f"ResNetBlock_{i}" in params:
+        bp, bs = params[f"ResNetBlock_{i}"], stats[f"ResNetBlock_{i}"]
+        out[f"blocks.{i}.conv1.weight"] = _conv_weight(bp["Conv_0"]["kernel"])
+        _batchnorm(f"blocks.{i}.bn1", bp["BatchNorm_0"], bs["BatchNorm_0"], out)
+        out[f"blocks.{i}.conv2.weight"] = _conv_weight(bp["Conv_1"]["kernel"])
+        _batchnorm(f"blocks.{i}.bn2", bp["BatchNorm_1"], bs["BatchNorm_1"], out)
+        i += 1
+    out["policy_conv.weight"] = _conv_weight(params["Conv_1"]["kernel"])
+    _batchnorm("policy_bn", params["BatchNorm_1"], stats["BatchNorm_1"], out)
+    _dense("policy_fc", params["Dense_0"], out)
+    out["value_conv.weight"] = _conv_weight(params["Conv_2"]["kernel"])
+    _batchnorm("value_bn", params["BatchNorm_2"], stats["BatchNorm_2"], out)
+    _dense("value_fc1", params["Dense_1"], out)
+    _dense("value_fc2", params["Dense_2"], out)
+    return out

@@ -1,0 +1,268 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``alpha_zero_tpu_torch/csrc``, holds
+each against its plain PyTorch version on the card, checks the port on the
+card against its CPU path on small inputs, then drives the main path — go9
+self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with random
+weights, 200 simulations, subtree reuse, max_new_sims=120) at B=1024 games
+— through ``init_selfplay_state`` and ``make_selfplay_step``, and checks
+that every select of that run went through the kernel.
+
+Every phase raises on failure; there is no CPU fallback. The line before
+the last is the card's name and power limit; the line before that is one
+JSON object with each kernel's launches, error and times; the last line is
+``{"ok": true, "device": {...}}``. Run from the repository root (the
+package must sit beside this file).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+BATCH = 1024
+TIMED_MOVES = 3
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
+# operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    sys.path.insert(0, HERE)
+    import alpha_zero_tpu_torch
+
+    if os.path.dirname(os.path.dirname(alpha_zero_tpu_torch.__file__)) != HERE:
+        raise SystemExit("chip_smoke: alpha_zero_tpu_torch must sit beside this script")
+
+    from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.envs.go import GoEngine
+    from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.ops import _build, tree_kernels
+    from alpha_zero_tpu_torch.search import mcts
+    from alpha_zero_tpu_torch.training import selfplay
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+
+    # Float32 reference checks below compare with the CPU: no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+
+    # --- 2. Build every kernel (one nvcc per source, all at once).
+    t0 = time.time()
+    reports = _build.build_all()
+    print(f"[2] built {_build.sources()} in {time.time() - t0:.1f} s", flush=True)
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line:
+                print(f"    {name}: {line.strip()}")
+
+    cfg = config_lib.go9()
+    engine = build_engine(cfg.env)
+    net = build_network(cfg.env, cfg.network, device=dev, seed=0)
+    eval_fn = selfplay.make_eval_fn(net)
+
+    # --- 3. K1 (select) against its plain version on the same trees.
+    select = tree_kernels.select_leaf_batched
+
+    def grown_trees(batch, sims, max_new_sims, seed):
+        """Carried trees after two moves, and the trees after one more
+        search from them."""
+        search = dataclasses.replace(cfg.search, num_simulations=sims,
+                                     max_new_sims=max_new_sims)
+        step = selfplay.make_selfplay_step(engine, net, search, cfg.resign, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sp = selfplay.init_selfplay_state(engine, batch, gen, -1.0, 0.0,
+                                          reuse_num_simulations=sims, device=dev)
+        for _ in range(2):
+            sp, _ = step(sp, gen, -1.0)
+        carried = sp.trees.map(torch.clone)
+        _, searched = mcts.batched_search(
+            eval_fn, engine, sp.games, sims, root_noise=True, generator=gen,
+            prev_trees=sp.trees, max_new_sims=max_new_sims, return_trees=True)
+        path_cap = min(sims + 1, engine.max_steps + 2)
+        return [carried, searched], path_cap
+
+    def select_args(tree):
+        return (tree.node_N, tree.node_W, tree.node_P, tree.parent_index,
+                tree.action_from_parent, tree.node_done, tree.child_P)
+
+    names = ("parent", "action", "child", "hit_terminal", "even", "odd", "depth", "p_sel")
+    max_err = 0.0
+    for label, (batch, sims, mns) in (("go9", (BATCH, 200, 120)),
+                                      ("ragged", (37, 16, 8))):
+        trees, path_cap = grown_trees(batch, sims, mns, seed=7)
+        kw = dict(path_cap=path_cap, c_puct_base=cfg.search.c_puct_base,
+                  c_puct_init=cfg.search.c_puct_init)
+        for which, tree in zip(("carried", "searched"), trees):
+            args = select_args(tree)
+            out = select(*args, **kw)
+            ref = mcts._select_leaf(*args, **kw)
+            torch.cuda.synchronize()
+            for name, o, r in zip(names, out, ref):
+                if o.dtype != r.dtype or not torch.equal(o, r):
+                    raise SystemExit(f"select kernel != plain on {label}/{which}: {name}")
+                max_err = max(max_err, float((o.double() - r.double()).abs().max()))
+            depth = ref[6]
+            print(f"[3] select bit-equal to plain: {label} {which} B={batch} "
+                  f"T={sims + 1} A={engine.num_actions} path_cap={path_cap} "
+                  f"depth mean {depth.double().mean():.2f} max {int(depth.max())}",
+                  flush=True)
+        if label == "go9":
+            args = select_args(trees[1])
+            kernel_ms = time_ms(lambda: select(*args, **kw), 50)
+            plain_ms = time_ms(lambda: mcts._select_leaf(*args, **kw), 5)
+            b, t, a = trees[1].child_P.shape
+            steps = float(mcts._select_leaf(*args, **kw)[6].double().sum())
+            # Each input read once (child_P: only the rows the descent
+            # visits), each output written once.
+            nbytes = 4 * (6 * b * t + steps * a + 2 * b * t + 5 * b)
+            # Per step: T compares in the parent scan; per action at most ~10
+            # operations for a child's score and ~8 for the fresh score,
+            # legality and argmax.
+            ops = steps * (t + 18 * a)
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            op_ms = ops / F32_OPS_PER_S * 1e3
+            bound_ms, bound_by = max((byte_ms, "bytes"), (op_ms, "operations"))
+            print(f"[3] select at go9 shapes on {card}: kernel {kernel_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+                  f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M ops)", flush=True)
+
+    # --- 4. The port on the card against its CPU path, on small inputs.
+    small = GoEngine(board_size=9, num_stack=8)
+    rng = torch.Generator().manual_seed(3)
+    s_gpu, s_cpu = small.init_batch(64, device=dev), small.init_batch(64, device="cpu")
+    for i in range(60):
+        weights = s_cpu.legal.clone()
+        weights[:, small.pass_move] = 0.02  # rare passes; the only move when done
+        moves = torch.multinomial(weights, 1, generator=rng)[:, 0].to(torch.int32)
+        s_cpu = small.step_batch(s_cpu, moves)
+        s_gpu = small.step_batch(s_gpu, moves.to(dev))
+        on_card = s_gpu.to_numpy()
+        for key, val in s_cpu.to_numpy().items():
+            if not (on_card[key] == val).all():
+                raise SystemExit(f"engine on the card != CPU at move {i}: {key}")
+    five = GoEngine(board_size=5, num_stack=4)
+    prior = torch.softmax(torch.randn(five.num_actions, generator=rng), 0)
+
+    def fixed_eval(obs):
+        return prior.to(obs.device).expand(obs.shape[0], -1), torch.zeros(
+            obs.shape[0], device=obs.device)
+
+    roots = five.init_batch(8, device="cpu")
+    r_cpu = mcts.batched_search(fixed_eval, five, roots, 16)
+    r_gpu = mcts.batched_search(fixed_eval, five, roots.map(lambda x: x.to(dev)), 16)
+    if not torch.equal(r_cpu.child_N, r_gpu.child_N.cpu()):
+        raise SystemExit("search on the card != CPU (fixed priors)")
+    small_net_cfg = dataclasses.replace(cfg.network, num_res_blocks=2, num_filters=16,
+                                        num_fc_units=16, inference_dtype="float32")
+    cpu_net = build_network(cfg.env, small_net_cfg, device="cpu", seed=1)
+    gpu_net = build_network(cfg.env, small_net_cfg, device=dev, seed=1)
+    obs = engine.observation(s_cpu)
+    with torch.no_grad():
+        o_cpu, o_gpu = cpu_net(obs), gpu_net(obs.to(dev))
+    net_err = max(float((o_cpu.pi_logits - o_gpu.pi_logits.cpu()).abs().max()),
+                  float((o_cpu.value - o_gpu.value.cpu()).abs().max()))
+    if net_err > 1e-4:
+        raise SystemExit(f"float32 net on the card != CPU: {net_err}")
+    print(f"[4] card == CPU: engine (64 games x 60 moves, exact), search "
+          f"(5x5, 16 sims, child_N exact), f32 net (max err {net_err:.2e})", flush=True)
+
+    # --- 5. The main path: go9 self-play moves.
+    step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sp = selfplay.init_selfplay_state(
+        engine, BATCH, gen, resign_threshold=-1.0,
+        disable_resign_ratio=cfg.resign.disable_resign_ratio,
+        reuse_num_simulations=cfg.search.num_simulations, device=dev)
+    loop_len = cfg.search.max_new_sims
+    torch.cuda.synchronize()
+    select.launches = 0
+    elapsed = 0.0
+    for move_idx in range(1 + TIMED_MOVES):
+        before = select.launches
+        legal = sp.games.legal
+        t0 = time.time()
+        sp, out = step(sp, gen, -1.0)
+        torch.cuda.synchronize()
+        if move_idx > 0:
+            elapsed += time.time() - t0
+        if select.launches - before != loop_len:
+            raise SystemExit(f"move {move_idx}: {select.launches - before} select "
+                             f"launches, expected {loop_len}")
+        move = out.move.long()
+        if not ((move >= 0) & (move < engine.num_actions)).all():
+            raise SystemExit(f"move {move_idx}: move out of range")
+        if not (legal.gather(1, move[:, None]) == 1.0).all():
+            raise SystemExit(f"move {move_idx}: illegal move")
+        if not torch.allclose(out.search_pi.sum(-1), torch.ones(BATCH, device=dev),
+                              atol=1e-5):
+            raise SystemExit(f"move {move_idx}: search_pi rows do not sum to 1")
+        if not (out.root_visits <= cfg.search.num_simulations).all():
+            raise SystemExit(f"move {move_idx}: root_visits above the budget")
+        if not all(torch.isfinite(x).all() for x in (out.root_q, out.best_child_q)):
+            raise SystemExit(f"move {move_idx}: non-finite values")
+    launches = select.launches
+    rate = BATCH * TIMED_MOVES / elapsed
+    print(f"[5] go9 self-play B={BATCH} 200 sims reuse max_new_sims={loop_len}: "
+          f"{rate:.1f} env-steps/s ({elapsed / TIMED_MOVES:.3f} s/move over "
+          f"{TIMED_MOVES} moves after 1 warm-up) on {card}; {launches} select "
+          f"launches ({loop_len}/move); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    print(json.dumps({"kernels": [{
+        "name": "select_leaf",
+        "route": "cuda",
+        "source": "alpha_zero_tpu_torch/csrc/select_leaf.cu",
+        "replaces": "alpha_zero_tpu/ops/tree_kernels.py:58",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,96 @@
+"""Tests of the port that need an NVIDIA GPU (marker ``cuda``).
+
+They skip without a card. They import only the port, so on a machine with a
+card and no JAX they run with the repository's conftest left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from alpha_zero_tpu_torch import config as config_lib
+from alpha_zero_tpu_torch.models.resnet import build_network
+from alpha_zero_tpu_torch.ops import tree_kernels
+from alpha_zero_tpu_torch.search import mcts
+from alpha_zero_tpu_torch.training import selfplay
+from alpha_zero_tpu_torch.training.pipeline import build_engine
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA only")
+    return torch.device("cuda")
+
+
+def _small_setup(board_size, sims, device):
+    cfg = config_lib.go9()
+    env = dataclasses.replace(cfg.env, board_size=board_size)
+    net_cfg = dataclasses.replace(cfg.network, num_res_blocks=1, num_filters=16,
+                                  num_fc_units=16, inference_dtype="float32")
+    search = dataclasses.replace(cfg.search, num_simulations=sims,
+                                 max_new_sims=sims // 2)
+    engine = build_engine(env)
+    net = build_network(env, net_cfg, device=device, seed=0)
+    return engine, net, search, cfg.resign
+
+
+def _grown_trees(board_size, sims, batch, device):
+    """Post-search trees after two self-play moves, on ``device``."""
+    engine, net, search, resign = _small_setup(board_size, sims, device)
+    step = selfplay.make_selfplay_step(engine, net, search, resign, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    sp = selfplay.init_selfplay_state(engine, batch, gen, -1.0, 0.0,
+                                      reuse_num_simulations=sims, device=device)
+    for _ in range(2):
+        sp, _ = step(sp, gen, -1.0)
+    _, trees = mcts.batched_search(
+        selfplay.make_eval_fn(net), engine, sp.games, sims, root_noise=True,
+        generator=gen, prev_trees=sp.trees, return_trees=True)
+    kw = dict(path_cap=min(sims + 1, engine.max_steps + 2),
+              c_puct_base=search.c_puct_base, c_puct_init=search.c_puct_init)
+    args = (trees.node_N, trees.node_W, trees.node_P, trees.parent_index,
+            trees.action_from_parent, trees.node_done, trees.child_P)
+    return args, kw
+
+
+@pytest.mark.parametrize("board_size,sims,batch", [(5, 16, 8), (9, 64, 37)])
+def test_select_kernel_bit_equal_to_plain(board_size, sims, batch, cuda_device):
+    args, kw = _grown_trees(board_size, sims, batch, cuda_device)
+    before = tree_kernels.select_leaf_batched.launches
+    out = tree_kernels.select_leaf_batched(*args, **kw)
+    ref = mcts._select_leaf(*args, **kw)
+    torch.cuda.synchronize()
+    assert tree_kernels.select_leaf_batched.launches == before + 1
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+    assert int(ref[6].max()) >= 2
+
+
+def test_select_kernel_rejects_bad_cuda_inputs(cuda_device):
+    args, kw = _grown_trees(5, 16, 4, cuda_device)
+    before = tree_kernels.select_leaf_batched.launches
+    with pytest.raises(TypeError):
+        tree_kernels.select_leaf_batched(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError):
+        tree_kernels.select_leaf_batched(args[0].cpu(), *args[1:], **kw)
+    assert tree_kernels.select_leaf_batched.launches == before
+
+
+def test_selfplay_step_launches_select_once_per_simulation(cuda_device):
+    engine, net, search, resign = _small_setup(5, 16, cuda_device)
+    step = selfplay.make_selfplay_step(engine, net, search, resign, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    sp = selfplay.init_selfplay_state(engine, 8, gen, -1.0, 0.0,
+                                      reuse_num_simulations=16, device=cuda_device)
+    for _ in range(3):
+        before = tree_kernels.select_leaf_batched.launches
+        sp, out = step(sp, gen, -1.0)
+        assert tree_kernels.select_leaf_batched.launches - before == search.max_new_sims
+        assert torch.allclose(out.search_pi.sum(-1),
+                              torch.ones(8, device=cuda_device), atol=1e-5)

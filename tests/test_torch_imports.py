@@ -1,0 +1,75 @@
+"""Import hygiene of the PyTorch port: it never reaches JAX or the JAX
+package, and its entry points do not drop silently to the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "alpha_zero_tpu_torch"
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "alpha_zero_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tools" / "profile_torch_selfplay.py"]
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+
+
+def test_port_sources_import_nothing_of_jax():
+    offenders = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in BANNED:
+                    offenders.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
+    assert not offenders, offenders
+    assert len(_port_files()) > 10
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {BANNED!r})\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.training import selfplay
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+
+    cfg = config_lib.go9()
+    engine = build_engine(cfg.env)
+    net = build_network(cfg.env, cfg.network, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfplay.init_selfplay_state(engine, 2, None, -1.0, 0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_network(cfg.env, cfg.network)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.init_batch(2)

@@ -1,0 +1,116 @@
+"""Where one go9 self-play move of the PyTorch port spends its time.
+
+    python3 tools/profile_torch_selfplay.py
+
+Runs the port's go9 self-play step (B=1024 games, bf16 net with random
+weights, 200 simulations, reuse, max_new_sims=120) on the GPU: one warm-up move, one
+timed move without the profiler, then one move under ``torch.profiler``.
+The search's phases are wrapped in ``record_function`` ranges by this script
+(the port itself carries no instrumentation), so the table gives, per phase,
+the host time inside its calls and the span its work covers on the device
+(idle gaps included). Prints the card, the move times, the device-busy share
+and kernel launches of the profiled move, the phase table and the top
+kernels. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
+
+from alpha_zero_tpu_torch import config as config_lib  # noqa: E402
+from alpha_zero_tpu_torch.envs.go import GoEngine  # noqa: E402
+from alpha_zero_tpu_torch.models.resnet import build_network  # noqa: E402
+from alpha_zero_tpu_torch.ops import tree_kernels  # noqa: E402
+from alpha_zero_tpu_torch.search import mcts  # noqa: E402
+from alpha_zero_tpu_torch.training import selfplay  # noqa: E402
+from alpha_zero_tpu_torch.training.pipeline import build_engine  # noqa: E402
+
+BATCH = 1024
+PHASES = ("select", "gather_state", "engine_step", "materialize", "history",
+          "net", "expand_backup", "reroot")
+
+
+def _ranged(name, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _instrument() -> None:
+    """Wraps each phase of the search in a named profiler range."""
+    tree_kernels.select_leaf_batched = _ranged("select", tree_kernels.select_leaf_batched)
+    mcts._gather_state_rows = _ranged("gather_state", mcts._gather_state_rows)
+    GoEngine.step_batch = _ranged("engine_step", GoEngine.step_batch)
+    mcts._materialize_scatter = _ranged("materialize", mcts._materialize_scatter)
+    mcts._leaf_history_batch = _ranged("history", mcts._leaf_history_batch)
+    mcts._expand_backup_scatter = _ranged("expand_backup", mcts._expand_backup_scatter)
+    mcts.reroot_trees = _ranged("reroot", mcts.reroot_trees)
+    make_eval_fn = selfplay.make_eval_fn
+    selfplay.make_eval_fn = lambda net: _ranged("net", make_eval_fn(net))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_selfplay: CUDA is not available")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+    _instrument()
+    dev = torch.device("cuda")
+    cfg = config_lib.go9()
+    engine = build_engine(cfg.env)
+    net = build_network(cfg.env, cfg.network, device=dev, seed=0)
+    step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sp = selfplay.init_selfplay_state(
+        engine, BATCH, gen, -1.0, cfg.resign.disable_resign_ratio,
+        reuse_num_simulations=cfg.search.num_simulations, device=dev)
+
+    def move():
+        nonlocal sp
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sp, _ = step(sp, gen, -1.0)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    move()  # warm-up
+    plain_s = move()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_s = move()
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in on_device if e.key not in PHASES]
+    spans = {e.key: e for e in on_device if e.key in PHASES}
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    print(f"card: {card}; batch {BATCH}")
+    print(f"move without profiler {plain_s:.3f} s ({BATCH / plain_s:.1f} "
+          f"env-steps/s); profiled move {profiled_s:.3f} s")
+    print(f"profiled move: {launches} kernel launches, device busy "
+          f"{busy_us / 1e3:.1f} ms = {busy_us / 1e4 / profiled_s:.1f}% of the "
+          f"profiled move, {busy_us / 1e4 / plain_s:.1f}% of the move without it")
+    print(f"{'phase':<14}{'calls':>7}{'host ms':>10}{'device span ms':>16}")
+    host = [e for e in events if e.key in PHASES and e not in on_device]
+    for e in sorted(host, key=lambda e: -e.cpu_time_total):
+        span = spans[e.key].device_time_total / 1e3 if e.key in spans else 0.0
+        print(f"{e.key:<14}{e.count:>7}{e.cpu_time_total / 1e3:>10.1f}{span:>16.1f}")
+    print("top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()
