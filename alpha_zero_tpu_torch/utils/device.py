@@ -1,8 +1,26 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the card's peak rates
+and timers its measuring code shares."""
 
 from __future__ import annotations
 
+import subprocess
+import time
+from typing import Callable
+
 import torch
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
+# operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them, to
+    stand beside every number measured on it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -13,3 +31,44 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def time_ms(fn: Callable[[], object], reps: int, device="cuda") -> float:
+    """Mean ms of ``fn()`` over ``reps`` back-to-back calls after one
+    warm-up: CUDA events on the card (the host's dispatch of each call
+    included), the host clock on the CPU."""
+    dev = torch.device(device)
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn: Callable[[], object], reps: int) -> float:
+    """Device ms per call of ``fn()``: ``reps`` calls captured in one CUDA
+    graph, replayed once to warm up, then timed over one replay with CUDA
+    events. Leaves out the host's dispatch of each call. The replays run
+    the recorded kernels without calling ``fn`` again, so a wrapper's
+    launch count does not see them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

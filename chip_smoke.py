@@ -8,7 +8,10 @@ card against its CPU path on small inputs, then drives the main path — go9
 self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with random
 weights, 200 simulations, subtree reuse, max_new_sims=120) at B=1024 games
 — through ``init_selfplay_state`` and ``make_selfplay_step``, and checks
-that every select of that run went through the kernel.
+that every select of that run went through the kernel. Last, it drives the
+row-scatter probe (``ops/scatter_probe.py:run_probe``, the entry point of
+the row-scatter kernels K2/K3) at go9 and gomoku13 tree shapes and checks
+that its run went through both kernels.
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -22,7 +25,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -30,30 +32,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 1024
 TIMED_MOVES = 3
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
-# operations/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> None:
@@ -70,10 +48,12 @@ def main() -> None:
     from alpha_zero_tpu_torch import config as config_lib
     from alpha_zero_tpu_torch.envs.go import GoEngine
     from alpha_zero_tpu_torch.models.resnet import build_network
-    from alpha_zero_tpu_torch.ops import _build, tree_kernels
+    from alpha_zero_tpu_torch.ops import _build, scatter_kernels, scatter_probe, tree_kernels
     from alpha_zero_tpu_torch.search import mcts
     from alpha_zero_tpu_torch.training import selfplay
     from alpha_zero_tpu_torch.training.pipeline import build_engine
+    from alpha_zero_tpu_torch.utils.device import (F32_OPS_PER_S, HBM_BYTES_PER_S,
+                                                   card_line, time_ms)
 
     # Float32 reference checks below compare with the CPU: no TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -144,6 +124,7 @@ def main() -> None:
                   f"depth mean {depth.double().mean():.2f} max {int(depth.max())}",
                   flush=True)
         if label == "go9":
+            go9_tree = trees[1]
             args = select_args(trees[1])
             kernel_ms = time_ms(lambda: select(*args, **kw), 50)
             plain_ms = time_ms(lambda: mcts._select_leaf(*args, **kw), 5)
@@ -245,6 +226,84 @@ def main() -> None:
           f"launches ({loop_len}/move); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    # --- 6. K2/K3 (row scatter) against their plain version, then the probe.
+    scatters = (scatter_kernels.scatter_rows, scatter_kernels.scatter_rows_bulk)
+    blend = scatter_kernels.blend_scatter
+    sgen = torch.Generator(device=dev).manual_seed(11)
+    scatter_err = {k.__name__: 0.0 for k in scatters}
+
+    def check_scatter(label, arr, rows, widx, kernels, ref=None):
+        ref = blend(arr, rows, widx) if ref is None else ref
+        for kernel in kernels:
+            got = kernel(arr.clone(), rows, widx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise SystemExit(f"{kernel.__name__} != plain on {label}")
+            err = float((got.double() - ref.double()).abs().max())
+            scatter_err[kernel.__name__] = max(scatter_err[kernel.__name__], err)
+        print(f"[6] {' and '.join(k.__name__ for k in kernels)} bit-equal on {label} "
+              f"B={arr.shape[0]} T={arr.shape[1]} W={arr.shape[2]}", flush=True)
+
+    for label, b, t, widths in (("go9", BATCH, 201, (82, 128)),
+                                ("gomoku13", BATCH, 381, (169, 256)),
+                                ("ragged", 37, 17, (12,))):
+        for w in widths:
+            arr = torch.randn((b, t, w), generator=sgen, device=dev)
+            rows = torch.randn((b, w), generator=sgen, device=dev)
+            if label == "ragged":  # lanes that write nothing: widx < 0 or >= T
+                widx = torch.randint(-3, t + 3, (b,), generator=sgen, device=dev)
+                widx[:3] = torch.tensor([-1, t, t + 2])
+                widx = widx.to(torch.int32)
+            else:
+                widx = torch.randint(0, t, (b,), generator=sgen, device=dev,
+                                     dtype=torch.int32)
+            check_scatter(f"{label} vs blend_scatter", arr, rows, widx,
+                          scatters if w % 4 == 0 else scatters[:1])
+    # K2 against the search's own row write, on the searched go9 tree of [3],
+    # where its next expand would write each lane's prior row.
+    child_P = go9_tree.child_P
+    b, t, a = child_P.shape
+    widx = torch.where(go9_tree.num_nodes < t, go9_tree.num_nodes, -1.0).to(torch.int32)
+    prior = torch.softmax(torch.randn((b, a), generator=sgen, device=dev), -1)
+    ref = child_P.clone()
+    mcts._put_rows(ref, torch.arange(b, device=dev), widx.clamp(0, t - 1).long(),
+                   prior, widx >= 0)
+    check_scatter(f"go9 searched tree ({int((widx >= 0).sum())} lanes writing) vs "
+                  f"_put_rows", child_P, prior, widx, scatters[:1], ref=ref)
+
+    for kernel in scatters:
+        kernel.launches = 0
+    go9_probe = scatter_probe.run_probe(BATCH, 201, engine.num_actions, 50, device=dev)
+    scatter_launches = {k.__name__: k.launches for k in scatters}
+    for name, count in scatter_launches.items():
+        if count == 0:
+            raise SystemExit(f"the probe run launched {name} no time")
+    scatter_probe.run_probe(BATCH, 381, 169, 50, device=dev)
+    print(f"[6] probe launches at go9: {scatter_launches}", flush=True)
+
+    def probe_line(name):
+        (line,) = [x for x in go9_probe["lines"]
+                   if x["name"] == name and x["width"] == go9_probe["apad"]]
+        return line
+
+    # The scatter times are device times from the probe's CUDA-graph replay;
+    # back to back, each call's host dispatch outlasts the kernel.
+    scatter_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": "alpha_zero_tpu_torch/csrc/scatter_rows.cu",
+        "replaces": replaces,
+        "launches": scatter_launches[name],
+        "max_abs_err": scatter_err[name],
+        "ms": probe_line(name)["graph_ms"],
+        "back_to_back_ms": probe_line(name)["ms"],
+        "plain_ms": probe_line("blend_scatter")["graph_ms"],
+        "bound_ms": probe_line(name)["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": probe_line("index_copy_")["graph_ms"],
+    } for name, replaces in (("scatter_rows", "tools/dma_probe.py:44"),
+                             ("scatter_rows_bulk", "tools/dma_probe.py:83"))]
+
     print(json.dumps({"kernels": [{
         "name": "select_leaf",
         "route": "cuda",
@@ -257,7 +316,7 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }] + scatter_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

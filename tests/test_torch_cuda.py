@@ -13,7 +13,7 @@ import torch
 
 from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.models.resnet import build_network
-from alpha_zero_tpu_torch.ops import tree_kernels
+from alpha_zero_tpu_torch.ops import scatter_kernels, scatter_probe, tree_kernels
 from alpha_zero_tpu_torch.search import mcts
 from alpha_zero_tpu_torch.training import selfplay
 from alpha_zero_tpu_torch.training.pipeline import build_engine
@@ -94,3 +94,71 @@ def test_selfplay_step_launches_select_once_per_simulation(cuda_device):
         assert tree_kernels.select_leaf_batched.launches - before == search.max_new_sims
         assert torch.allclose(out.search_pi.sum(-1),
                               torch.ones(8, device=cuda_device), atol=1e-5)
+
+
+def _scatter_inputs(b, t, w, device, ragged):
+    """Normal arr/rows; widx uniform in [0, T), or for a ragged case in
+    [-3, T + 3) with -1, T and T + 2 among the first lanes."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    arr = torch.randn((b, t, w), generator=gen, device=device)
+    rows = torch.randn((b, w), generator=gen, device=device)
+    lo, hi = (-3, t + 3) if ragged else (0, t)
+    widx = torch.randint(lo, hi, (b,), generator=gen, device=device).to(torch.int32)
+    if ragged:
+        widx[:3] = torch.tensor([-1, t, t + 2], dtype=torch.int32)
+    return arr, rows, widx
+
+
+@pytest.mark.parametrize("name", ["scatter_rows", "scatter_rows_bulk"])
+@pytest.mark.parametrize("b,t,w,ragged", [(1024, 201, 128, False), (37, 17, 12, True)])
+def test_scatter_kernel_bit_equal_to_plain(name, b, t, w, ragged, cuda_device):
+    """go9's tree at the padded width, and a ragged batch whose widx runs
+    out of range on both sides."""
+    kernel = getattr(scatter_kernels, name)
+    arr, rows, widx = _scatter_inputs(b, t, w, cuda_device, ragged)
+    ref = scatter_kernels.blend_scatter(arr, rows, widx)
+    before = kernel.launches
+    assert kernel(arr, rows, widx) is arr
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(arr, ref)
+
+
+def test_scatter_bulk_rejects_unaligned_rows(cuda_device):
+    bulk = scatter_kernels.scatter_rows_bulk
+    before = bulk.launches
+    arr, rows, widx = _scatter_inputs(8, 5, 82, cuda_device, ragged=True)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        bulk(arr, rows, widx)
+    arr, rows, widx = _scatter_inputs(8, 5, 128, cuda_device, ragged=True)
+    view = torch.zeros(arr.numel() + 1, device=cuda_device)[1:].view(arr.shape).copy_(arr)
+    with pytest.raises(ValueError, match="aligned"):
+        bulk(view, rows, widx)
+    assert bulk.launches == before
+    # K2 takes the misaligned view.
+    scatter_kernels.scatter_rows(view, rows, widx)
+    assert torch.equal(view, scatter_kernels.blend_scatter(arr, rows, widx))
+
+
+def test_scatter_probe_runs_on_the_card(cuda_device):
+    out = scatter_probe.run_probe(64, 9, 82, reps=2, device=cuda_device)
+    assert len(out["lines"]) == 9
+    assert all(x["ms"] > 0 and x["graph_ms"] > 0 for x in out["lines"])
+
+
+def test_scatter_launches_skip_graph_capture_and_replay(cuda_device):
+    """A call under CUDA-graph capture records the kernel and is not
+    counted; the replay runs it without the wrapper, and it writes."""
+    arr, rows, widx = _scatter_inputs(37, 17, 12, cuda_device, ragged=True)
+    ref = scatter_kernels.blend_scatter(arr, rows, widx)
+    kernel = scatter_kernels.scatter_rows
+    kernel(arr.clone(), rows, widx)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = kernel.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernel(arr, rows, widx)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kernel.launches == before
+    assert torch.equal(arr, ref)

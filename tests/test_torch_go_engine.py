@@ -16,10 +16,12 @@ import torch
 
 from alpha_zero_tpu.envs.go import GoEngine as JaxGoEngine
 from alpha_zero_tpu.envs.types import jitted
+from alpha_zero_tpu.search import mcts as jax_mcts
 from alpha_zero_tpu.utils.coords import CoordsConvertor
 from alpha_zero_tpu.utils.sgf import parse_sgf
 from alpha_zero_tpu_torch.envs.go import GoEngine
 from alpha_zero_tpu_torch.envs.types import GameState
+from alpha_zero_tpu_torch.search import mcts
 
 from torch_parity import assert_tree_equal
 
@@ -35,13 +37,13 @@ def _step_both(jax_engine, engine, j_states, t_states, moves):
     return j_states, t_states
 
 
-@pytest.mark.parametrize("board_size,seed", [(5, 0), (5, 1), (9, 2)])
-def test_random_games_match(board_size, seed):
+def _play_random_games(board_size, seed, max_steps=None, check=None):
     """Four games in one batch, to the end (double pass, max steps or a
-    resignation), with captures and kos along the way."""
+    resignation), with captures and kos along the way; ``check(j_states,
+    t_states)`` runs after every step."""
     n, batch = board_size, 4
-    jax_engine = JaxGoEngine(board_size=n, num_stack=3)
-    engine = GoEngine(board_size=n, num_stack=3)
+    jax_engine = JaxGoEngine(board_size=n, num_stack=3, max_steps=max_steps)
+    engine = GoEngine(board_size=n, num_stack=3, max_steps=max_steps)
     j_states = jax_engine.init_batch(batch)
     t_states = engine.init_batch(batch, device="cpu")
     assert_tree_equal(j_states, t_states)
@@ -59,9 +61,32 @@ def test_random_games_match(board_size, seed):
         if rng.rand() < 0.02:
             moves[rng.randint(batch)] = -1  # a resignation
         j_states, t_states = _step_both(jax_engine, engine, j_states, t_states, moves)
+        if check is not None:
+            check(j_states, t_states)
         if bool(np.asarray(j_states.done).all()):
             break
     assert bool(t_states.done.all())
+
+
+@pytest.mark.parametrize("board_size,seed", [(5, 0), (5, 1), (9, 2)])
+def test_random_games_match(board_size, seed):
+    _play_random_games(board_size, seed)
+
+
+def test_random_19x19_games_match():
+    """19x19 (four games cut at 160 moves), where the search stores labels
+    and liberty counts as int16: the node state of every step must match the
+    JAX package's and give the engine's state back."""
+
+    def check(j_states, t_states):
+        ns = mcts._node_state_of(t_states)
+        assert ns.labels.dtype == ns.group_libs.dtype == torch.int16
+        assert_tree_equal(jax_mcts._node_state_of(j_states), ns)
+        back = mcts._game_state_of(ns, t_states.legal.shape[-1])
+        assert torch.equal(back.labels, t_states.labels)
+        assert torch.equal(back.group_libs, t_states.group_libs)
+
+    _play_random_games(19, 3, max_steps=160, check=check)
 
 
 def test_sgf_game_replays_identically():
@@ -82,7 +107,7 @@ def test_sgf_game_replays_identically():
     assert len(game.moves) > 50
 
 
-@pytest.mark.parametrize("board_size", [5, 9])
+@pytest.mark.parametrize("board_size", [5, 9, 19])
 def test_analysis_and_scoring_of_random_boards(board_size):
     n, batch = board_size, 16
     rng = np.random.RandomState(board_size)

@@ -17,7 +17,8 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "alpha_zero_tpu")
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "tools" / "profile_torch_selfplay.py"]
+                                         REPO / "tools" / "profile_torch_selfplay.py",
+                                         REPO / "tools" / "dma_probe_torch.py"]
 
 
 def _port_modules():

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import functools
 import os
-import subprocess
 import sys
 import time
 
@@ -33,6 +32,7 @@ from alpha_zero_tpu_torch.ops import tree_kernels  # noqa: E402
 from alpha_zero_tpu_torch.search import mcts  # noqa: E402
 from alpha_zero_tpu_torch.training import selfplay  # noqa: E402
 from alpha_zero_tpu_torch.training.pipeline import build_engine  # noqa: E402
+from alpha_zero_tpu_torch.utils.device import card_line  # noqa: E402
 
 BATCH = 1024
 PHASES = ("select", "gather_state", "engine_step", "materialize", "history",
@@ -63,9 +63,7 @@ def _instrument() -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_selfplay: CUDA is not available")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
 
     _instrument()
     dev = torch.device("cuda")
