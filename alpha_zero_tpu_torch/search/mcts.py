@@ -11,7 +11,7 @@ gather lowerings the JAX package also carries (``_gather_state_rows``,
 ``_materialize_scatter``, ``_expand_backup_scatter``, the gather branch of
 ``_leaf_history_batch``): every step touches only the rows it needs. Select
 always goes through ``ops.tree_kernels.select_leaf_batched`` — the CUDA
-kernel on the card, the plain ``_select_leaf`` below on the CPU.
+kernel on the card, its plain version ``select_leaf_plain`` on the CPU.
 
 The search updates its trees IN PLACE (a simulation writes one row per game
 instead of copying the ``[B, T, A]`` prior array): ``batched_search`` takes
@@ -250,96 +250,6 @@ def _add_dirichlet_noise(tree: Tree, noise: torch.Tensor, eps: float) -> Tree:
     tree.node_P.copy_(torch.where(tree.parent_index == 0.0, p_of_action, tree.node_P))
     tree.child_P[:, 0] = row0
     return tree
-
-
-# ---------------------------------------------------------------------------
-# Selection: the plain version of the select kernel
-# ---------------------------------------------------------------------------
-
-
-def _select_leaf(node_N, node_W, node_P, parent_index, action_from_parent,
-                 node_done, child_P, *, path_cap: int, c_puct_base: float,
-                 c_puct_init: float) -> Tuple:
-    """Descends every tree by PUCT from the root until an unmaterialized
-    edge, a terminal child or ``path_cap`` steps.
-
-    At each step the current node's existing children score
-    ``-W/max(N,1) + pb_c*max(P,0)*(sqrt(n)/(1+N))`` from the [B, T] vectors
-    and land at their action; unvisited legal actions score from the node's
-    ``child_P`` row, illegal ones -9999; the first maximum wins. The visited
-    nodes are recorded in two [B, T] masks by depth parity.
-
-    Returns what ``ops.tree_kernels.select_leaf_batched`` returns (int32
-    parent/action/child/depth, bool hit_terminal, f32 even/odd/p_sel) —
-    the kernel computes the same bits. Each lane's loop stops on its own;
-    finished lanes are masked while the others go on.
-    """
-    batch, capacity = node_N.shape
-    num_actions = child_P.shape[-1]
-    dev = node_N.device
-    bidx = torch.arange(batch, device=dev)
-    t_iota = torch.arange(capacity, device=dev)
-    # A tensor divisor: PyTorch's CUDA division by a Python float multiplies
-    # by the reciprocal, which is not the IEEE division the kernel does.
-    base = torch.tensor(c_puct_base, dtype=torch.float32, device=dev)
-    q_t = node_W / torch.clamp_min(node_N, 1.0)
-
-    cur = torch.zeros((batch,), dtype=torch.long, device=dev)
-    n_cur = node_N[:, 0].clone()
-    action = torch.full((batch,), -1, dtype=torch.long, device=dev)
-    child = torch.full((batch,), -1, dtype=torch.long, device=dev)
-    p_sel = torch.zeros((batch,), dtype=torch.float32, device=dev)
-    depth = torch.zeros((batch,), dtype=torch.long, device=dev)
-    live = torch.full((batch,), path_cap > 0, dtype=torch.bool, device=dev)
-    even = torch.zeros((batch, capacity), dtype=torch.float32, device=dev)
-    odd = torch.zeros((batch, capacity), dtype=torch.float32, device=dev)
-
-    while bool(live.any()):
-        # Same expression tree as the kernel (and the JAX package).
-        pb_c = torch.log((1.0 + n_cur + c_puct_base) / base) + c_puct_init
-        sqrt_n = torch.sqrt(n_cur)
-        u_t = pb_c[:, None] * torch.clamp_min(node_P, 0.0) * (
-            sqrt_n[:, None] / (1.0 + node_N))
-        score_t = -q_t + u_t
-        # Scatter each child's score and slot to its action; non-children
-        # go to a dump column A.
-        is_child = parent_index == cur[:, None].float()
-        slot_a = torch.where(is_child, action_from_parent,
-                             float(num_actions)).long()
-        score_A = torch.zeros((batch, num_actions + 1), device=dev).scatter_(
-            1, slot_a, score_t)[:, :num_actions]
-        child_A = torch.full((batch, num_actions + 1), -1, dtype=torch.long,
-                             device=dev).scatter_(
-            1, slot_a, t_iota.expand(batch, -1))[:, :num_actions]
-        p_row = child_P[bidx, cur]
-        fresh = -0.0 + pb_c[:, None] * torch.clamp_min(p_row, 0.0) * (
-            sqrt_n[:, None] / 1.0)
-        scores = torch.where(p_row >= 0.0,
-                             torch.where(child_A >= 0, score_A, fresh), -9999.0)
-        act_new = scores.argmax(dim=1)
-        child_new = child_A[bidx, act_new]
-        p_new = p_row[bidx, act_new]
-        child_c = child_new.clamp(0, capacity - 1)
-        is_new = child_new < 0
-        stop = is_new | (node_done[bidx, child_c] > 0.5)
-
-        rec = (t_iota[None, :] == cur[:, None]) & live[:, None]
-        is_even = (depth % 2 == 0)[:, None]
-        even = torch.where(rec & is_even, 1.0, even)
-        odd = torch.where(rec & ~is_even, 1.0, odd)
-
-        move_on = live & ~stop
-        cur = torch.where(move_on, child_c, cur)
-        n_cur = torch.where(move_on, node_N[bidx, child_c], n_cur)
-        action = torch.where(live, act_new, action)
-        child = torch.where(live, child_new, child)
-        p_sel = torch.where(live, p_new, p_sel)
-        depth = depth + live.long()
-        live = live & ~stop & (depth < path_cap)
-
-    i32 = torch.int32
-    return (cur.to(i32), action.to(i32), child.to(i32), child >= 0, even, odd,
-            depth.to(i32), p_sel)
 
 
 # ---------------------------------------------------------------------------

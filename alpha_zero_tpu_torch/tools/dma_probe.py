@@ -1,5 +1,6 @@
 """Row-scatter probe: how fast can the card write one row per game lane
-into a ``[B, T, W]`` tree array?
+into a ``[B, T, W]`` tree array? The port's counterpart of the repository's
+``tools/dma_probe.py``; ``tools/dma_probe_torch.py`` is its command line.
 
 The search writes each new node's rows (``search/mcts.py:_put_rows``) into
 arrays of that shape every simulation. This probe holds the two row-scatter

@@ -9,9 +9,17 @@ self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with random
 weights, 200 simulations, subtree reuse, max_new_sims=120) at B=1024 games
 — through ``init_selfplay_state`` and ``make_selfplay_step``, and checks
 that every select of that run went through the kernel. Last, it drives the
-row-scatter probe (``ops/scatter_probe.py:run_probe``, the entry point of
-the row-scatter kernels K2/K3) at go9 and gomoku13 tree shapes and checks
-that its run went through both kernels.
+row-scatter probe (``alpha_zero_tpu_torch/tools/dma_probe.py:run_probe``,
+the entry point of the row-scatter kernels K2/K3) at go9 and gomoku13 tree
+shapes and checks that its run went through both kernels.
+
+The select kernel K1 is held bit-equal to its plain version on go9 trees
+of the port's own search, a ragged batch, and synthetic trees at the
+gomoku13 and go19_jumbo tree shapes, then timed at go9: ``ms`` is its
+device time from a CUDA-graph replay, warm in L2, ``cold_ms`` the same with
+L2 flushed before each call, ``back_to_back_ms`` the time of back-to-back
+calls with the host's dispatch
+(``alpha_zero_tpu_torch/tools/select_bench.py:time_select``).
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -48,12 +56,12 @@ def main() -> None:
     from alpha_zero_tpu_torch import config as config_lib
     from alpha_zero_tpu_torch.envs.go import GoEngine
     from alpha_zero_tpu_torch.models.resnet import build_network
-    from alpha_zero_tpu_torch.ops import _build, scatter_kernels, scatter_probe, tree_kernels
+    from alpha_zero_tpu_torch.ops import _build, scatter_kernels, tree_kernels
     from alpha_zero_tpu_torch.search import mcts
+    from alpha_zero_tpu_torch.tools import dma_probe, select_bench
     from alpha_zero_tpu_torch.training import selfplay
     from alpha_zero_tpu_torch.training.pipeline import build_engine
-    from alpha_zero_tpu_torch.utils.device import (F32_OPS_PER_S, HBM_BYTES_PER_S,
-                                                   card_line, time_ms)
+    from alpha_zero_tpu_torch.utils.device import card_line, time_ms
 
     # Float32 reference checks below compare with the CPU: no TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -79,70 +87,55 @@ def main() -> None:
 
     # --- 3. K1 (select) against its plain version on the same trees.
     select = tree_kernels.select_leaf_batched
-
-    def grown_trees(batch, sims, max_new_sims, seed):
-        """Carried trees after two moves, and the trees after one more
-        search from them."""
-        search = dataclasses.replace(cfg.search, num_simulations=sims,
-                                     max_new_sims=max_new_sims)
-        step = selfplay.make_selfplay_step(engine, net, search, cfg.resign, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        sp = selfplay.init_selfplay_state(engine, batch, gen, -1.0, 0.0,
-                                          reuse_num_simulations=sims, device=dev)
-        for _ in range(2):
-            sp, _ = step(sp, gen, -1.0)
-        carried = sp.trees.map(torch.clone)
-        _, searched = mcts.batched_search(
-            eval_fn, engine, sp.games, sims, root_noise=True, generator=gen,
-            prev_trees=sp.trees, max_new_sims=max_new_sims, return_trees=True)
-        path_cap = min(sims + 1, engine.max_steps + 2)
-        return [carried, searched], path_cap
-
-    def select_args(tree):
-        return (tree.node_N, tree.node_W, tree.node_P, tree.parent_index,
-                tree.action_from_parent, tree.node_done, tree.child_P)
-
-    names = ("parent", "action", "child", "hit_terminal", "even", "odd", "depth", "p_sel")
+    names = select_bench.OUTPUTS
     max_err = 0.0
+
+    def check_select(label, args, kw):
+        nonlocal max_err
+        out = select(*args, **kw)
+        ref = tree_kernels.select_leaf_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name, o, r in zip(names, out, ref):
+            if o.dtype != r.dtype or not torch.equal(o, r):
+                raise SystemExit(f"select kernel != plain on {label}: {name}")
+            max_err = max(max_err, float((o.double() - r.double()).abs().max()))
+        b, t, a = args[6].shape
+        depth = ref[6]
+        print(f"[3] select bit-equal to plain: {label} B={b} T={t} A={a} "
+              f"path_cap={kw['path_cap']} depth mean {depth.double().mean():.2f} "
+              f"max {int(depth.max())}", flush=True)
+        return ref
+
     for label, (batch, sims, mns) in (("go9", (BATCH, 200, 120)),
                                       ("ragged", (37, 16, 8))):
-        trees, path_cap = grown_trees(batch, sims, mns, seed=7)
+        trees, path_cap = select_bench.grown_trees(cfg, engine, net, batch, sims, mns,
+                                                   seed=7, device=dev)
         kw = dict(path_cap=path_cap, c_puct_base=cfg.search.c_puct_base,
                   c_puct_init=cfg.search.c_puct_init)
         for which, tree in zip(("carried", "searched"), trees):
-            args = select_args(tree)
-            out = select(*args, **kw)
-            ref = mcts._select_leaf(*args, **kw)
-            torch.cuda.synchronize()
-            for name, o, r in zip(names, out, ref):
-                if o.dtype != r.dtype or not torch.equal(o, r):
-                    raise SystemExit(f"select kernel != plain on {label}/{which}: {name}")
-                max_err = max(max_err, float((o.double() - r.double()).abs().max()))
-            depth = ref[6]
-            print(f"[3] select bit-equal to plain: {label} {which} B={batch} "
-                  f"T={sims + 1} A={engine.num_actions} path_cap={path_cap} "
-                  f"depth mean {depth.double().mean():.2f} max {int(depth.max())}",
-                  flush=True)
+            ref = check_select(f"{label} {which}", select_bench.select_args(tree), kw)
         if label == "go9":
             go9_tree = trees[1]
-            args = select_args(trees[1])
-            kernel_ms = time_ms(lambda: select(*args, **kw), 50)
-            plain_ms = time_ms(lambda: mcts._select_leaf(*args, **kw), 5)
-            b, t, a = trees[1].child_P.shape
-            steps = float(mcts._select_leaf(*args, **kw)[6].double().sum())
-            # Each input read once (child_P: only the rows the descent
-            # visits), each output written once.
-            nbytes = 4 * (6 * b * t + steps * a + 2 * b * t + 5 * b)
-            # Per step: T compares in the parent scan; per action at most ~10
-            # operations for a child's score and ~8 for the fresh score,
-            # legality and argmax.
-            ops = steps * (t + 18 * a)
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            op_ms = ops / F32_OPS_PER_S * 1e3
-            bound_ms, bound_by = max((byte_ms, "bytes"), (op_ms, "operations"))
-            print(f"[3] select at go9 shapes on {card}: kernel {kernel_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-                  f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M ops)", flush=True)
+            args = select_bench.select_args(go9_tree)
+            times = select_bench.time_select(select, args, kw, 50)
+            plain_ms = time_ms(lambda: tree_kernels.select_leaf_plain(*args, **kw), 5)
+            bound = select_bench.select_bound(ref[6], *go9_tree.child_P.shape)
+            print(f"[3] select at go9 shapes on {card}: graph {times['ms']:.5f} ms warm, "
+                  f"{times['cold_ms']:.5f} ms with L2 flushed, back to back "
+                  f"{times['back_to_back_ms']:.5f} ms; plain {plain_ms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}: "
+                  f"{bound['bytes'] / 1e6:.2f} MB, {bound['ops'] / 1e6:.1f} M ops)",
+                  flush=True)
+    # Synthetic trees (every kind of lane: chains, ties, ±0.0 priors, a
+    # terminal child, an unexpanded root, random) at the tree shapes of
+    # gomoku13 and go19_jumbo, the chains whole and cut by path_cap.
+    for label, t, a in (("gomoku13", 381, 169), ("go19_jumbo", 801, 362)):
+        arrays = select_bench.synthetic_trees(64, t, a, seed=5)
+        args = tuple(torch.from_numpy(arrays[f]).to(dev) for f in select_bench.FIELDS)
+        for path_cap in (t, t // 2):
+            check_select(f"synthetic {label}", args,
+                         dict(path_cap=path_cap, c_puct_base=cfg.search.c_puct_base,
+                              c_puct_init=cfg.search.c_puct_init))
 
     # --- 4. The port on the card against its CPU path, on small inputs.
     small = GoEngine(board_size=9, num_stack=8)
@@ -273,12 +266,12 @@ def main() -> None:
 
     for kernel in scatters:
         kernel.launches = 0
-    go9_probe = scatter_probe.run_probe(BATCH, 201, engine.num_actions, 50, device=dev)
+    go9_probe = dma_probe.run_probe(BATCH, 201, engine.num_actions, 50, device=dev)
     scatter_launches = {k.__name__: k.launches for k in scatters}
     for name, count in scatter_launches.items():
         if count == 0:
             raise SystemExit(f"the probe run launched {name} no time")
-    scatter_probe.run_probe(BATCH, 381, 169, 50, device=dev)
+    dma_probe.run_probe(BATCH, 381, 169, 50, device=dev)
     print(f"[6] probe launches at go9: {scatter_launches}", flush=True)
 
     def probe_line(name):
@@ -311,10 +304,12 @@ def main() -> None:
         "replaces": "alpha_zero_tpu/ops/tree_kernels.py:58",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
+        "ms": times["ms"],
+        "cold_ms": times["cold_ms"],
+        "back_to_back_ms": times["back_to_back_ms"],
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
         "library_ms": None,
     }] + scatter_entries}))
     print(card)

@@ -13,10 +13,13 @@ import torch
 
 from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.models.resnet import build_network
-from alpha_zero_tpu_torch.ops import scatter_kernels, scatter_probe, tree_kernels
+from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
 from alpha_zero_tpu_torch.search import mcts
+from alpha_zero_tpu_torch.tools import dma_probe
+from alpha_zero_tpu_torch.tools.select_bench import FIELDS, synthetic_trees
 from alpha_zero_tpu_torch.training import selfplay
 from alpha_zero_tpu_torch.training.pipeline import build_engine
+from alpha_zero_tpu_torch.utils.device import device_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -64,12 +67,69 @@ def test_select_kernel_bit_equal_to_plain(board_size, sims, batch, cuda_device):
     args, kw = _grown_trees(board_size, sims, batch, cuda_device)
     before = tree_kernels.select_leaf_batched.launches
     out = tree_kernels.select_leaf_batched(*args, **kw)
-    ref = mcts._select_leaf(*args, **kw)
+    ref = tree_kernels.select_leaf_plain(*args, **kw)
     torch.cuda.synchronize()
     assert tree_kernels.select_leaf_batched.launches == before + 1
     for o, r in zip(out, ref):
         assert o.dtype == r.dtype and torch.equal(o, r)
     assert int(ref[6].max()) >= 2
+
+
+# (T, A) of the configs' trees, and one whose lane needs more than the
+# default 48 KB of shared memory (the kernel's opt-in path).
+_GEOMETRIES = {"go9": (201, 82), "gomoku13": (381, 169), "go19_jumbo": (801, 362),
+               "t1601": (1601, 362)}
+
+
+def _synthetic_args(geometry, batch, device, seed=0):
+    t, a = _GEOMETRIES[geometry]
+    arrays = synthetic_trees(batch, t, a, seed)
+    return tuple(torch.from_numpy(arrays[f]).to(device) for f in FIELDS), t
+
+
+@pytest.mark.parametrize("geometry", sorted(_GEOMETRIES))
+@pytest.mark.parametrize("cut", [False, True], ids=["full_path_cap", "cut_path_cap"])
+def test_select_kernel_bit_equal_on_synthetic_trees(geometry, cut, cuda_device):
+    """Every kind of synthetic lane (chains, ties, ±0.0 priors, a terminal
+    child, an unexpanded root, random trees) at the tree shapes of go9,
+    gomoku13, go19_jumbo and T=1601, B=37; the cut path_cap stops the
+    chains."""
+    args, t = _synthetic_args(geometry, 37, cuda_device)
+    kw = dict(path_cap=t // 2 if cut else t, c_puct_base=19652.0, c_puct_init=1.25)
+    out = tree_kernels.select_leaf_batched(*args, **kw)
+    ref = tree_kernels.select_leaf_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+    assert int(ref[6].max()) == min(kw["path_cap"], t - 3)
+
+
+def test_select_is_one_kernel_launch_per_call(cuda_device):
+    args, t = _synthetic_args("go9", 64, cuda_device)
+    kw = dict(path_cap=t, c_puct_base=19652.0, c_puct_init=1.25)
+    per_call = device_kernels(lambda: tree_kernels.select_leaf_batched(*args, **kw), 5)
+    assert [n for n, _ in per_call.values()] == [1.0], per_call
+    assert "select_leaf_kernel" in next(iter(per_call))
+
+
+def test_select_launches_skip_graph_capture_and_replay(cuda_device):
+    """A call under CUDA-graph capture records the kernel and is not
+    counted; the replay runs it without the wrapper, and it is right."""
+    args, t = _synthetic_args("go9", 37, cuda_device)
+    kw = dict(path_cap=t, c_puct_base=19652.0, c_puct_init=1.25)
+    select = tree_kernels.select_leaf_batched
+    ref = tree_kernels.select_leaf_plain(*args, **kw)
+    select(*args, **kw)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = select.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = select(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert select.launches == before
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
 
 
 def test_select_kernel_rejects_bad_cuda_inputs(cuda_device):
@@ -141,7 +201,7 @@ def test_scatter_bulk_rejects_unaligned_rows(cuda_device):
 
 
 def test_scatter_probe_runs_on_the_card(cuda_device):
-    out = scatter_probe.run_probe(64, 9, 82, reps=2, device=cuda_device)
+    out = dma_probe.run_probe(64, 9, 82, reps=2, device=cuda_device)
     assert len(out["lines"]) == 9
     assert all(x["ms"] > 0 and x["graph_ms"] > 0 for x in out["lines"])
 

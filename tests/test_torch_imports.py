@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: it never reaches JAX or the JAX
-package, and its entry points do not drop silently to the CPU."""
+package, its kernel layer imports nothing above it, and its entry points
+do not drop silently to the CPU."""
 
 import ast
 import os
@@ -18,7 +19,8 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "alpha_zero_tpu")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "tools" / "profile_torch_selfplay.py",
-                                         REPO / "tools" / "dma_probe_torch.py"]
+                                         REPO / "tools" / "dma_probe_torch.py",
+                                         REPO / "tools" / "select_bench_torch.py"]
 
 
 def _port_modules():
@@ -27,21 +29,33 @@ def _port_modules():
         for p in PORT.rglob("*.py"))
 
 
+def _imports(path):
+    """``(line, module)`` of every import in ``path``, at any depth."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((node.lineno, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, node.module or ""
+
+
 def test_port_sources_import_nothing_of_jax():
-    offenders = []
-    for path in _port_files():
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                if name.split(".")[0] in BANNED:
-                    offenders.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
+    offenders = [f"{path.relative_to(REPO)}:{line} {name}"
+                 for path in _port_files() for line, name in _imports(path)
+                 if name.split(".")[0] in BANNED]
     assert not offenders, offenders
     assert len(_port_files()) > 10
+
+
+def test_kernel_layer_imports_nothing_above_it():
+    """``ops/`` (the kernels, their wrappers and plain versions) sits below
+    the search, the training loop and the measuring tools."""
+    above = tuple(f"alpha_zero_tpu_torch.{m}" for m in ("search", "training", "tools"))
+    files = sorted((PORT / "ops").glob("*.py"))
+    offenders = [f"{path.relative_to(REPO)}:{line} {name}"
+                 for path in files for line, name in _imports(path)
+                 if name.startswith(above)]
+    assert not offenders, offenders
+    assert len(files) >= 3
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -20,10 +20,11 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from alpha_zero_tpu_torch.ops import scatter_kernels, scatter_probe
+from alpha_zero_tpu_torch.ops import scatter_kernels
 from alpha_zero_tpu_torch.ops.scatter_kernels import (blend_scatter, scatter_rows,
                                                       scatter_rows_bulk)
 from alpha_zero_tpu_torch.search import mcts
+from alpha_zero_tpu_torch.tools import dma_probe
 from alpha_zero_tpu_torch.utils.device import time_ms
 
 
@@ -252,7 +253,7 @@ def test_bulk_wrapper_rejects_unaligned_rows():
 
 
 def test_probe_checks_and_times_every_variant_on_cpu(capsys):
-    out = scatter_probe.run_probe(16, 9, 82, reps=1, device="cpu")
+    out = dma_probe.run_probe(16, 9, 82, reps=1, device="cpu")
     assert out["apad"] == 128 and out["device"].startswith("cpu")
     got = [(x["name"], x["width"]) for x in out["lines"]]
     names = ["blend_scatter", "scatter_rows", "index_copy_", "_put_rows"]
@@ -267,14 +268,14 @@ def test_probe_checks_and_times_every_variant_on_cpu(capsys):
         assert x["ms"] > 0 and x["graph_ms"] is None  # no device time on the CPU
     assert len(capsys.readouterr().out.splitlines()) == 1 + len(got)
     # go9's tree at B=1024: 1.05 MB for a row scatter at the padded width.
-    assert scatter_probe.row_bytes(1024, 128) == 1_052_672
+    assert dma_probe.row_bytes(1024, 128) == 1_052_672
 
 
 def test_probe_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
-        scatter_probe.run_probe(8, 5, 12, reps=1)
+        dma_probe.run_probe(8, 5, 12, reps=1)
 
 
 def test_time_ms_calls_once_to_warm_up_then_reps_times_on_cpu():

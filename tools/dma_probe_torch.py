@@ -7,7 +7,7 @@ Holds the row-scatter kernels K2 (``scatter_rows``) and K3
 and at ``a`` padded to a multiple of 128, then prints, per variant, the
 mean time of ``reps`` back-to-back calls and its device time from a CUDA
 graph replay, beside the bytes it must move and their time at the card's
-memory rate (``ops/scatter_probe.py:run_probe``).
+memory rate (``alpha_zero_tpu_torch/tools/dma_probe.py:run_probe``).
 The defaults are go9's tree (T = 200 sims + 1, A = 82); gomoku13 is
 ``--t 381 --a 169``. Exits non-zero if any variant disagrees; needs a CUDA
 device.
@@ -21,7 +21,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from alpha_zero_tpu_torch.ops.scatter_probe import run_probe  # noqa: E402
+from alpha_zero_tpu_torch.tools.dma_probe import run_probe  # noqa: E402
 
 
 def main(argv=None) -> int:

@@ -9,8 +9,10 @@ The search's phases are wrapped in ``record_function`` ranges by this script
 (the port itself carries no instrumentation), so the table gives, per phase,
 the host time inside its calls and the span its work covers on the device
 (idle gaps included). Prints the card, the move times, the device-busy share
-and kernel launches of the profiled move, the phase table and the top
-kernels. Needs a CUDA device.
+and kernel launches of the profiled move, the phase table, the top
+kernels and K1's own row (launches and device time per launch in the
+move). Last, it profiles 20 select calls on the trees the move left and
+prints every device kernel of one call. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ from alpha_zero_tpu_torch.envs.go import GoEngine  # noqa: E402
 from alpha_zero_tpu_torch.models.resnet import build_network  # noqa: E402
 from alpha_zero_tpu_torch.ops import tree_kernels  # noqa: E402
 from alpha_zero_tpu_torch.search import mcts  # noqa: E402
+from alpha_zero_tpu_torch.tools import select_bench  # noqa: E402
 from alpha_zero_tpu_torch.training import selfplay  # noqa: E402
 from alpha_zero_tpu_torch.training.pipeline import build_engine  # noqa: E402
-from alpha_zero_tpu_torch.utils.device import card_line  # noqa: E402
+from alpha_zero_tpu_torch.utils.device import card_line, device_kernels  # noqa: E402
 
 BATCH = 1024
+SELECT_KERNEL = "select_leaf_kernel"  # K1's name in the trace
 PHASES = ("select", "gather_state", "engine_step", "materialize", "history",
           "net", "expand_backup", "reroot")
 
@@ -108,6 +112,22 @@ def main() -> None:
     print("top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+    for e in kernels:
+        if SELECT_KERNEL in e.key:
+            print(f"K1 {e.key} in the move: {e.count} launches, "
+                  f"{e.self_device_time_total / 1e3:.2f} ms, "
+                  f"{e.self_device_time_total / e.count:.3f} us per launch")
+
+    # Every device kernel of one select call, on the trees the move left.
+    kw = dict(path_cap=min(cfg.search.num_simulations + 1, engine.max_steps + 2),
+              c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
+    args = select_bench.select_args(sp.trees)
+    per_call = {name: v for name, v in device_kernels(
+        lambda: tree_kernels.select_leaf_batched(*args, **kw), 20).items()
+        if name not in PHASES}  # not the profiler range around select
+    print(f"device kernels per select call: {sum(n for n, _ in per_call.values()):g}")
+    for name, (n, ms) in per_call.items():
+        print(f"  x{n:g} {ms * 1e3:8.3f} us  {name[:90]}")
 
 
 if __name__ == "__main__":
