@@ -10,8 +10,10 @@ Where the JAX package chose one-hot matmuls for the TPU, this port uses the
 gather lowerings the JAX package also carries (``_gather_state_rows``,
 ``_materialize_scatter``, ``_expand_backup_scatter``, the gather branch of
 ``_leaf_history_batch``): every step touches only the rows it needs. Select
-always goes through ``ops.tree_kernels.select_leaf_batched`` — the CUDA
-kernel on the card, its plain version ``select_leaf_plain`` on the CPU.
+always goes through ``ops.tree_kernels.select_leaf_batched``, and the tree
+writes of a simulation (13 arrays when a node is materialized, 2 when it is
+expanded) through one ``ops.scatter_kernels.write_rows`` call each — the
+CUDA kernels on the card, their plain versions on the CPU.
 
 The search updates its trees IN PLACE (a simulation writes one row per game
 instead of copying the ``[B, T, A]`` prior array): ``batched_search`` takes
@@ -30,7 +32,7 @@ from typing import Callable, ClassVar, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from alpha_zero_tpu_torch.envs.types import GameState, TensorStruct
-from alpha_zero_tpu_torch.ops import tree_kernels
+from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
 
 
 @dataclasses.dataclass
@@ -257,14 +259,6 @@ def _add_dirichlet_noise(tree: Tree, noise: torch.Tensor, eps: float) -> Tree:
 # ---------------------------------------------------------------------------
 
 
-def _put_rows(arr: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
-              rows: torch.Tensor, write: torch.Tensor) -> None:
-    """``arr[b, slot[b]] = rows[b]`` where ``write[b]``; other lanes write
-    their old row back (no host sync to drop them)."""
-    old = arr[bidx, slot]
-    arr[bidx, slot] = torch.where(_rows(write, old.dim()), rows.to(arr.dtype), old)
-
-
 def _materialize_scatter(tree: Tree, slot: torch.Tensor, parent: torch.Tensor,
                          action: torch.Tensor, existing_child: torch.Tensor,
                          hit_terminal: torch.Tensor, active: torch.Tensor,
@@ -274,22 +268,19 @@ def _materialize_scatter(tree: Tree, slot: torch.Tensor, parent: torch.Tensor,
     allocates nothing where selection hit an existing terminal node or the
     lane's budget is spent. In place. Returns (tree, leaf, needs_eval)."""
     batch, capacity = tree.node_N.shape
-    bidx = torch.arange(batch, device=slot.device)
     is_new = ~hit_terminal & active & (slot < capacity)
     slot_i = slot.clamp(0, capacity - 1).long()
 
-    for f in dataclasses.fields(NodeState):
-        _put_rows(getattr(tree.states, f.name), bidx, slot_i,
-                  getattr(new_node, f.name), is_new)
     zeros = torch.zeros((batch,), device=slot.device)
-    for arr, rows in ((tree.parent_index, parent.float()),
-                      (tree.action_from_parent, action.float()),
-                      (tree.node_done, new_done.float()),
-                      (tree.node_reward, new_reward),
-                      (tree.node_N, zeros),
-                      (tree.node_W, zeros),
-                      (tree.node_P, edge_prior)):
-        _put_rows(arr, bidx, slot_i, rows, is_new)
+    pairs = [(getattr(tree.states, f.name), getattr(new_node, f.name))
+             for f in dataclasses.fields(NodeState)]
+    pairs += [(tree.parent_index, parent), (tree.action_from_parent, action),
+              (tree.node_done, new_done), (tree.node_reward, new_reward),
+              (tree.node_N, zeros), (tree.node_W, zeros), (tree.node_P, edge_prior)]
+    scatter_kernels.write_rows(
+        [arr for arr, _ in pairs],
+        [rows.to(arr.dtype).contiguous() for arr, rows in pairs],
+        torch.where(is_new, slot_i, -1).to(torch.int32))
     tree.num_nodes.add_(is_new.float())
     leaf = torch.where(is_new, slot_i, existing_child.clamp(0, capacity - 1).long())
     needs_eval = is_new & ~new_done
@@ -306,11 +297,11 @@ def _expand_backup_scatter(tree: Tree, slot: torch.Tensor, leaf: torch.Tensor,
     the terminal move), sign-alternating up the recorded path. Lanes whose
     budget is spent change nothing. In place."""
     batch, capacity = tree.node_N.shape
-    bidx = torch.arange(batch, device=slot.device)
     slot_i = slot.clamp(0, capacity - 1).long()
-    _put_rows(tree.child_P, bidx, slot_i, prior, needs_eval)
-    _put_rows(tree.node_expanded, bidx, slot_i,
-              torch.ones_like(needs_eval), needs_eval)
+    scatter_kernels.write_rows(
+        [tree.child_P, tree.node_expanded],
+        [prior.to(tree.child_P.dtype).contiguous(), torch.ones_like(needs_eval)],
+        torch.where(needs_eval, slot_i, -1).to(torch.int32))
 
     act = active.float()
     term_reward = tree.node_reward.gather(1, leaf[:, None].long())[:, 0]

@@ -8,9 +8,13 @@ card against its CPU path on small inputs, then drives the main path — go9
 self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with random
 weights, 200 simulations, subtree reuse, max_new_sims=120) at B=1024 games
 — through ``init_selfplay_state`` and ``make_selfplay_step``, and checks
-that every select of that run went through the kernel. Last, it drives the
+that every select of that run went through the select kernel K1 (120
+launches a move) and every tree write through the tree-row writer K2 (2
+launches a simulation, 240 a move). Last, it holds K2 and K3 bit-equal to
+their plain versions on the searched go9 tree's materialize and expand
+sets, on go19-shaped int16 rows and on 1-byte rows, then drives the
 row-scatter probe (``alpha_zero_tpu_torch/tools/dma_probe.py:run_probe``,
-the entry point of the row-scatter kernels K2/K3) at go9 and gomoku13 tree
+the entry point of K3 and the timer of both) at go9 and gomoku13 tree
 shapes and checks that its run went through both kernels.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
@@ -19,7 +23,10 @@ gomoku13 and go19_jumbo tree shapes, then timed at go9: ``ms`` is its
 device time from a CUDA-graph replay, warm in L2, ``cold_ms`` the same with
 L2 flushed before each call, ``back_to_back_ms`` the time of back-to-back
 calls with the host's dispatch
-(``alpha_zero_tpu_torch/tools/select_bench.py:time_select``).
+(``alpha_zero_tpu_torch/tools/select_bench.py:time_select``). K2 is timed
+the same three ways on the go9 materialize set (its ``ms``; the expand set
+and the single f32 array beside it), each in turns with the ``put_rows``
+sequence it replaced, and with every lane idle (its launch floor).
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -186,10 +193,12 @@ def main() -> None:
         reuse_num_simulations=cfg.search.num_simulations, device=dev)
     loop_len = cfg.search.max_new_sims
     torch.cuda.synchronize()
+    writer = scatter_kernels.write_rows
     select.launches = 0
+    writer.launches = 0
     elapsed = 0.0
     for move_idx in range(1 + TIMED_MOVES):
-        before = select.launches
+        before, writes_before = select.launches, writer.launches
         legal = sp.games.legal
         t0 = time.time()
         sp, out = step(sp, gen, -1.0)
@@ -199,6 +208,9 @@ def main() -> None:
         if select.launches - before != loop_len:
             raise SystemExit(f"move {move_idx}: {select.launches - before} select "
                              f"launches, expected {loop_len}")
+        if writer.launches - writes_before != 2 * loop_len:
+            raise SystemExit(f"move {move_idx}: {writer.launches - writes_before} "
+                             f"tree-row writer launches, expected {2 * loop_len}")
         move = out.move.long()
         if not ((move >= 0) & (move < engine.num_actions)).all():
             raise SystemExit(f"move {move_idx}: move out of range")
@@ -211,12 +223,13 @@ def main() -> None:
             raise SystemExit(f"move {move_idx}: root_visits above the budget")
         if not all(torch.isfinite(x).all() for x in (out.root_q, out.best_child_q)):
             raise SystemExit(f"move {move_idx}: non-finite values")
-    launches = select.launches
+    launches, writer_launches = select.launches, writer.launches
     rate = BATCH * TIMED_MOVES / elapsed
     print(f"[5] go9 self-play B={BATCH} 200 sims reuse max_new_sims={loop_len}: "
           f"{rate:.1f} env-steps/s ({elapsed / TIMED_MOVES:.3f} s/move over "
           f"{TIMED_MOVES} moves after 1 warm-up) on {card}; {launches} select "
-          f"launches ({loop_len}/move); peak memory "
+          f"launches ({loop_len}/move), {writer_launches} tree-row writer launches "
+          f"({2 * loop_len}/move); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     # --- 6. K2/K3 (row scatter) against their plain version, then the probe.
@@ -252,22 +265,67 @@ def main() -> None:
                                      dtype=torch.int32)
             check_scatter(f"{label} vs blend_scatter", arr, rows, widx,
                           scatters if w % 4 == 0 else scatters[:1])
-    # K2 against the search's own row write, on the searched go9 tree of [3],
-    # where its next expand would write each lane's prior row.
-    child_P = go9_tree.child_P
-    b, t, a = child_P.shape
-    widx = torch.where(go9_tree.num_nodes < t, go9_tree.num_nodes, -1.0).to(torch.int32)
-    prior = torch.softmax(torch.randn((b, a), generator=sgen, device=dev), -1)
-    ref = child_P.clone()
-    mcts._put_rows(ref, torch.arange(b, device=dev), widx.clamp(0, t - 1).long(),
-                   prior, widx >= 0)
-    check_scatter(f"go9 searched tree ({int((widx >= 0).sum())} lanes writing) vs "
-                  f"_put_rows", child_P, prior, widx, scatters[:1], ref=ref)
+    # The tree-row writer K2 against its plain version: the searched go9
+    # tree of [3] with rows for its next materialize and expand writes,
+    # synthetic go19-shaped arrays (int16 labels/liberties, 722/724-byte
+    # rows), and B=37 with 1-byte and odd-address rows; K3 on rows of whole
+    # 16-byte units. widx is ragged: -1, T and T + 2 among the lanes.
+    def ragged(b, t, base=None):
+        widx = torch.randint(-3, t + 3, (b,), generator=sgen, device=dev)
+        if base is not None:
+            widx = torch.where(torch.rand(b, generator=sgen, device=dev) < 0.9, base, widx)
+        widx[:3] = torch.tensor([-1, t, t + 2])
+        return widx.to(torch.int32)
 
-    for kernel in scatters:
+    def random_rows(arr):
+        shape = (arr.shape[0],) + arr.shape[2:]
+        if arr.dtype.is_floating_point:
+            return torch.randn(shape, generator=sgen, device=dev).to(arr.dtype)
+        return torch.randint(-100, 100, shape, generator=sgen, device=dev).to(arr.dtype)
+
+    def check_set(label, kernel, arrays, rows, widx):
+        for w in (widx, torch.full_like(widx, -1)):
+            dma_probe.check_writer(kernel, arrays, rows, w)
+        torch.cuda.synchronize()
+        print(f"[6] {kernel.__name__} bit-equal to write_rows_plain on {label}: "
+              f"{len(arrays)} arrays, {dma_probe.lane_bytes(rows)} B a lane, "
+              f"B={widx.shape[0]}, {int(((widx >= 0) & (widx < arrays[0].shape[1])).sum())} "
+              f"lanes writing", flush=True)
+
+    tree = go9_tree
+    b, t = tree.node_N.shape
+    next_slot = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).long()
+    materialize = [getattr(tree.states, f.name) for f in dataclasses.fields(mcts.NodeState)]
+    materialize += [tree.parent_index, tree.action_from_parent, tree.node_done,
+                    tree.node_reward, tree.node_N, tree.node_W, tree.node_P]
+    for label, arrays in (("go9 searched tree, materialize set", materialize),
+                          ("go9 searched tree, expand set",
+                           [tree.child_P, tree.node_expanded])):
+        check_set(label, writer, arrays, [random_rows(x) for x in arrays],
+                  ragged(b, t, next_slot))
+    go19 = dma_probe.tree_sets(128, 801, 362, sgen, dev)
+    check_set("synthetic go19 sets (int16 722/724-byte rows)", writer,
+              go19["materialize"][0] + go19["expand"][0],
+              go19["materialize"][1] + go19["expand"][1], ragged(128, 801))
+    del go19
+    odd = [torch.randint(-100, 100, (37 * 17 * n + 1,), generator=sgen,
+                         device=dev).to(dtype)[1:].view((37, 17) + shape)
+           for n, shape, dtype in ((1, (), torch.int8), (1, (), torch.bool),
+                                   (3, (3,), torch.int8))]
+    check_set("B=37, 1- and 3-byte rows at odd addresses", writer, odd,
+              [random_rows(x) for x in odd], ragged(37, 17))
+    units = [torch.randint(-100, 100, (b, t) + shape, generator=sgen,
+                           device=dev).to(dtype)
+             for shape, dtype in (((128,), torch.float32), ((16,), torch.int8),
+                                  ((8,), torch.int16))]
+    check_set("16-byte rows at go9's B and T", scatter_kernels.write_rows_bulk, units,
+              [random_rows(x) for x in units], ragged(b, t))
+
+    counted = (writer, scatter_kernels.write_rows_bulk)
+    for kernel in counted:
         kernel.launches = 0
     go9_probe = dma_probe.run_probe(BATCH, 201, engine.num_actions, 50, device=dev)
-    scatter_launches = {k.__name__: k.launches for k in scatters}
+    scatter_launches = {k.__name__: k.launches for k in counted}
     for name, count in scatter_launches.items():
         if count == 0:
             raise SystemExit(f"the probe run launched {name} no time")
@@ -279,23 +337,59 @@ def main() -> None:
                    if x["name"] == name and x["width"] == go9_probe["apad"]]
         return line
 
-    # The scatter times are device times from the probe's CUDA-graph replay;
-    # back to back, each call's host dispatch outlasts the kernel.
+    def set_line(name, set_name):
+        (line,) = [x for x in go9_probe["sets"] if x["name"] == name and x["set"] == set_name]
+        return line
+
+    mat, exp = set_line("write_rows", "materialize"), set_line("write_rows", "expand")
+    print(f"[6] K2 at go9 on {card}: materialize set graph {mat['graph_ms']:.5f} ms warm, "
+          f"{mat['cold_ms']:.5f} cold, {mat['ms']:.5f} back to back, bound "
+          f"{mat['bound_ms']:.6f}, launch floor "
+          f"{set_line('launch_floor', 'materialize')['graph_ms']:.5f}; put_rows x13 "
+          f"{set_line('put_rows', 'materialize')['graph_ms']:.5f}. Expand set "
+          f"{exp['graph_ms']:.5f} warm, {exp['cold_ms']:.5f} cold; put_rows x2 "
+          f"{set_line('put_rows', 'expand')['graph_ms']:.5f}", flush=True)
+
+    # Device times from the probe's CUDA-graph replays; K2's at the go9
+    # materialize set (13 arrays: no single PyTorch call writes them), with
+    # the expand set and the single f32 array (vs index_copy_) beside it.
     scatter_entries = [{
-        "name": name,
+        "name": "write_rows",
         "route": "cuda",
         "source": "alpha_zero_tpu_torch/csrc/scatter_rows.cu",
-        "replaces": replaces,
-        "launches": scatter_launches[name],
-        "max_abs_err": scatter_err[name],
-        "ms": probe_line(name)["graph_ms"],
-        "back_to_back_ms": probe_line(name)["ms"],
+        "replaces": "tools/dma_probe.py:44",
+        "launches": writer_launches,
+        "probe_launches": scatter_launches["write_rows"],
+        "max_abs_err": scatter_err["scatter_rows"],
+        "ms": mat["graph_ms"],
+        "cold_ms": mat["cold_ms"],
+        "back_to_back_ms": mat["ms"],
+        "launch_floor_ms": set_line("launch_floor", "materialize")["graph_ms"],
+        "plain_ms": set_line("put_rows", "materialize")["graph_ms"],
+        "bound_ms": mat["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "expand_ms": exp["graph_ms"],
+        "expand_cold_ms": exp["cold_ms"],
+        "expand_plain_ms": set_line("put_rows", "expand")["graph_ms"],
+        "expand_bound_ms": exp["bound_ms"],
+        "f32_row_ms": probe_line("scatter_rows")["graph_ms"],
+        "f32_row_bound_ms": probe_line("scatter_rows")["bound_ms"],
+        "f32_row_library_ms": probe_line("index_copy_")["graph_ms"],
+    }, {
+        "name": "write_rows_bulk",
+        "route": "cuda",
+        "source": "alpha_zero_tpu_torch/csrc/scatter_rows.cu",
+        "replaces": "tools/dma_probe.py:83",
+        "launches": scatter_launches["write_rows_bulk"],
+        "max_abs_err": scatter_err["scatter_rows_bulk"],
+        "ms": probe_line("scatter_rows_bulk")["graph_ms"],
+        "back_to_back_ms": probe_line("scatter_rows_bulk")["ms"],
         "plain_ms": probe_line("blend_scatter")["graph_ms"],
-        "bound_ms": probe_line(name)["bound_ms"],
+        "bound_ms": probe_line("scatter_rows_bulk")["bound_ms"],
         "bound_by": "bytes",
         "library_ms": probe_line("index_copy_")["graph_ms"],
-    } for name, replaces in (("scatter_rows", "tools/dma_probe.py:44"),
-                             ("scatter_rows_bulk", "tools/dma_probe.py:83"))]
+    }]
 
     print(json.dumps({"kernels": [{
         "name": "select_leaf",

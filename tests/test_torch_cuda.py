@@ -16,6 +16,7 @@ from alpha_zero_tpu_torch.models.resnet import build_network
 from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
 from alpha_zero_tpu_torch.search import mcts
 from alpha_zero_tpu_torch.tools import dma_probe
+from alpha_zero_tpu_torch.tools.dma_probe import check_writer, tree_sets
 from alpha_zero_tpu_torch.tools.select_bench import FIELDS, synthetic_trees
 from alpha_zero_tpu_torch.training import selfplay
 from alpha_zero_tpu_torch.training.pipeline import build_engine
@@ -169,6 +170,11 @@ def _scatter_inputs(b, t, w, device, ragged):
     return arr, rows, widx
 
 
+# The kernel each single-array wrapper launches, and so the count it adds to.
+_COUNTER = {"scatter_rows": scatter_kernels.write_rows,
+            "scatter_rows_bulk": scatter_kernels.write_rows_bulk}
+
+
 @pytest.mark.parametrize("name", ["scatter_rows", "scatter_rows_bulk"])
 @pytest.mark.parametrize("b,t,w,ragged", [(1024, 201, 128, False), (37, 17, 12, True)])
 def test_scatter_kernel_bit_equal_to_plain(name, b, t, w, ragged, cuda_device):
@@ -177,16 +183,16 @@ def test_scatter_kernel_bit_equal_to_plain(name, b, t, w, ragged, cuda_device):
     kernel = getattr(scatter_kernels, name)
     arr, rows, widx = _scatter_inputs(b, t, w, cuda_device, ragged)
     ref = scatter_kernels.blend_scatter(arr, rows, widx)
-    before = kernel.launches
+    before = _COUNTER[name].launches
     assert kernel(arr, rows, widx) is arr
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert _COUNTER[name].launches == before + 1
     assert torch.equal(arr, ref)
 
 
 def test_scatter_bulk_rejects_unaligned_rows(cuda_device):
     bulk = scatter_kernels.scatter_rows_bulk
-    before = bulk.launches
+    before = scatter_kernels.write_rows_bulk.launches
     arr, rows, widx = _scatter_inputs(8, 5, 82, cuda_device, ragged=True)
     with pytest.raises(ValueError, match="multiple of 4"):
         bulk(arr, rows, widx)
@@ -194,7 +200,7 @@ def test_scatter_bulk_rejects_unaligned_rows(cuda_device):
     view = torch.zeros(arr.numel() + 1, device=cuda_device)[1:].view(arr.shape).copy_(arr)
     with pytest.raises(ValueError, match="aligned"):
         bulk(view, rows, widx)
-    assert bulk.launches == before
+    assert scatter_kernels.write_rows_bulk.launches == before
     # K2 takes the misaligned view.
     scatter_kernels.scatter_rows(view, rows, widx)
     assert torch.equal(view, scatter_kernels.blend_scatter(arr, rows, widx))
@@ -202,8 +208,8 @@ def test_scatter_bulk_rejects_unaligned_rows(cuda_device):
 
 def test_scatter_probe_runs_on_the_card(cuda_device):
     out = dma_probe.run_probe(64, 9, 82, reps=2, device=cuda_device)
-    assert len(out["lines"]) == 9
-    assert all(x["ms"] > 0 and x["graph_ms"] > 0 for x in out["lines"])
+    assert len(out["lines"]) == 9 and len(out["sets"]) == 5
+    assert all(x["ms"] > 0 and x["graph_ms"] > 0 for x in out["lines"] + out["sets"])
 
 
 def test_scatter_launches_skip_graph_capture_and_replay(cuda_device):
@@ -214,11 +220,127 @@ def test_scatter_launches_skip_graph_capture_and_replay(cuda_device):
     kernel = scatter_kernels.scatter_rows
     kernel(arr.clone(), rows, widx)  # warm-up outside the capture
     torch.cuda.synchronize()
-    before = kernel.launches
+    before = scatter_kernels.write_rows.launches
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         kernel(arr, rows, widx)
     graph.replay()
     torch.cuda.synchronize()
-    assert kernel.launches == before
+    assert scatter_kernels.write_rows.launches == before
     assert torch.equal(arr, ref)
+
+
+def _ragged_widx(b, t, device, seed=3):
+    """widx in [-3, T + 3) with -1, T and T + 2 among the first lanes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    widx = torch.randint(-3, t + 3, (b,), generator=gen, device=device).to(torch.int32)
+    widx[:3] = torch.tensor([-1, t, t + 2], dtype=torch.int32)
+    return widx
+
+
+def _misaligned_byte_set(b, t, device):
+    """int8 and bool arrays whose rows (1, 3, 17 and 33 bytes) start at odd
+    addresses: views one byte into their storage, rows likewise."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    arrays, rows = [], []
+    for row_shape, dtype in (((), torch.int8), ((3,), torch.int8), ((17,), torch.int8),
+                             ((33,), torch.int8), ((5,), torch.bool)):
+        out = []
+        for shape in ((b, t) + row_shape, (b,) + row_shape):
+            n = 1
+            for d in shape:
+                n *= d
+            base = torch.randint(-100, 100, (n + 1,), generator=gen, device=device)
+            out.append(base.to(dtype)[1:].view(shape))
+        arrays.append(out[0])
+        rows.append(out[1])
+    assert arrays[1].data_ptr() % 2 == 1
+    return arrays, rows
+
+
+def _writer_case(case, device):
+    """(arrays, rows, widx) of a writer check."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    if case in ("go9_materialize", "go9_expand"):
+        arrays, rows = tree_sets(1024, 201, 82, gen, device)[case.split("_")[1]]
+        return arrays, rows, _ragged_widx(1024, 201, device)
+    if case == "go19_int16":  # labels 722 B, group_libs 724 B, child_P 1448 B
+        sets = tree_sets(64, 101, 362, gen, device)
+        arrays, rows = sets["materialize"]
+        assert arrays[1].dtype == torch.int16 and rows[2][0].numel() * 2 == 724
+        return (arrays + sets["expand"][0], rows + sets["expand"][1],
+                _ragged_widx(64, 101, device))
+    if case == "misaligned_bytes":
+        arrays, rows = _misaligned_byte_set(64, 9, device)
+        return arrays, rows, _ragged_widx(64, 9, device)
+    if case == "ragged_b37":
+        arrays, rows = tree_sets(37, 17, 26, gen, device)["materialize"]
+        return arrays, rows, _ragged_widx(37, 17, device)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["go9_materialize", "go9_expand", "go19_int16",
+                                  "misaligned_bytes", "ragged_b37"])
+def test_writer_bit_equal_to_plain(case, cuda_device):
+    arrays, rows, widx = _writer_case(case, cuda_device)
+    before = scatter_kernels.write_rows.launches
+    check_writer(scatter_kernels.write_rows, arrays, rows, widx)
+    torch.cuda.synchronize()
+    assert scatter_kernels.write_rows.launches == before + 1
+    check_writer(scatter_kernels.write_rows, arrays, rows, torch.full_like(widx, -1))
+
+
+def test_writer_is_one_kernel_launch_per_call(cuda_device):
+    arrays, rows, widx = _writer_case("go9_materialize", cuda_device)
+    per_call = device_kernels(lambda: scatter_kernels.write_rows(arrays, rows, widx), 5)
+    assert [n for n, _ in per_call.values()] == [1.0], per_call
+    assert "write_rows_kernel" in next(iter(per_call))
+
+
+def test_writer_launches_skip_graph_capture_and_replay(cuda_device):
+    arrays, rows, widx = _writer_case("go9_expand", cuda_device)
+    ref = [x.clone() for x in arrays]
+    scatter_kernels.write_rows_plain(ref, rows, widx)
+    writer = scatter_kernels.write_rows
+    writer([x.clone() for x in arrays], rows, widx)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = writer.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        writer(arrays, rows, widx)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert writer.launches == before
+    for got, r in zip(arrays, ref):
+        assert torch.equal(got, r)
+
+
+def test_selfplay_step_launches_writer_twice_per_simulation(cuda_device):
+    engine, net, search, resign = _small_setup(9, 16, cuda_device)
+    step = selfplay.make_selfplay_step(engine, net, search, resign, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    sp = selfplay.init_selfplay_state(engine, 8, gen, -1.0, 0.0,
+                                      reuse_num_simulations=16, device=cuda_device)
+    for _ in range(2):
+        before = scatter_kernels.write_rows.launches
+        sp, _ = step(sp, gen, -1.0)
+        assert scatter_kernels.write_rows.launches - before == 2 * search.max_new_sims
+
+
+def test_bulk_writer_bit_equal_on_16_byte_rows(cuda_device):
+    """K3 on a set of rows made of whole 16-byte units in four dtypes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    arrays, rows = [], []
+    for row_shape, dtype in (((128,), torch.float32), ((16,), torch.int8),
+                             ((8,), torch.int16), ((4, 4), torch.int32)):
+        for shape, out in (((37, 17) + row_shape, arrays), ((37,) + row_shape, rows)):
+            out.append(torch.randint(-100, 100, shape, generator=gen,
+                                     device=cuda_device).to(dtype))
+    widx = _ragged_widx(37, 17, cuda_device)
+    before = scatter_kernels.write_rows_bulk.launches
+    check_writer(scatter_kernels.write_rows_bulk, arrays, rows, widx)
+    torch.cuda.synchronize()
+    assert scatter_kernels.write_rows_bulk.launches == before + 1
+    with pytest.raises(ValueError, match="16-byte"):
+        scatter_kernels.write_rows_bulk([arrays[1][:, :, :1].contiguous()],
+                                        [rows[1][:, :1].contiguous()], widx)

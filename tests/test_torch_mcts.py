@@ -208,3 +208,81 @@ def test_policy_and_move_sampling_with_jax_draws(deterministic):
     ref_q = jax_mcts.best_child_q(jnp.asarray(child_n), jnp.asarray(child_w), ref_move)
     out_q = mcts.best_child_q(torch.from_numpy(child_n), torch.from_numpy(child_w), out_move)
     np.testing.assert_array_equal(np.asarray(ref_q), out_q.numpy())
+
+
+def _grown_go9_trees(batch, sims):
+    """The port's trees after one 9x9 search (fixed prior, material value),
+    and the JAX package's ``Tree`` holding the same arrays."""
+    engine = GoEngine(board_size=9, num_stack=2)
+    a = engine.num_actions
+    prior = torch.from_numpy(np.random.RandomState(3).dirichlet(np.ones(a)).astype(np.float32))
+
+    def eval_fn(obs):
+        own = obs[..., 0].to(torch.int32).sum((1, 2))
+        opp = obs[..., 1].to(torch.int32).sum((1, 2))
+        return prior.expand(obs.shape[0], a), (own - opp).float() * 0.05
+
+    _, trees = mcts.batched_search(eval_fn, engine, engine.init_batch(batch, device="cpu"),
+                                   sims, return_trees=True)
+    arrays = trees.to_numpy()
+    jax_trees = jax_mcts.Tree(**{k: jnp.asarray(v) for k, v in arrays.items() if k != "states"},
+                              states=jax_mcts.NodeState(**{
+                                  k: jnp.asarray(v) for k, v in arrays["states"].items()}))
+    return trees, jax_trees
+
+
+def test_tree_writes_match_jax_field_by_field():
+    """The port's ``_materialize_scatter`` and ``_expand_backup_scatter``
+    (each one tree-row writer call) against the JAX package's on one grown
+    go9-shaped tree, every field exact: lanes that write, lanes whose tree
+    is full, lanes that hit a terminal node or whose budget is spent."""
+    batch, sims = 8, 16
+    trees, jax_trees = _grown_go9_trees(batch, sims)
+    capacity, a = sims + 1, trees.child_P.shape[-1]
+    rng = np.random.RandomState(17)
+    slot = np.asarray(jax_trees.num_nodes).astype(np.int32)
+    slot[1] = capacity  # a full tree: nothing to write
+    used = np.maximum(slot, 1)
+    parent = (rng.rand(batch) * used).astype(np.int32)
+    action = rng.randint(0, a, size=batch).astype(np.int32)
+    child = rng.randint(-1, capacity, size=batch).astype(np.int32)
+    hit_terminal = rng.rand(batch) < 0.25
+    active = rng.rand(batch) < 0.8
+    hit_terminal[0], active[0] = False, True
+    node = dict(board=rng.randint(-1, 2, size=(batch, 9, 9)).astype(np.int8),
+                labels=rng.randint(-1, 81, size=(batch, 9, 9)).astype(np.int8),
+                group_libs=rng.randint(0, 20, size=(batch, 82)).astype(np.int8),
+                to_play=rng.choice([-1, 1], size=batch).astype(np.int8),
+                pass_streak=rng.randint(0, 2, size=batch).astype(np.int32),
+                step_count=rng.randint(0, 90, size=batch).astype(np.int32))
+    done = rng.rand(batch) < 0.3
+    done[0] = False
+    reward = rng.choice([-1.0, 0.0, 1.0], size=batch).astype(np.float32)
+    edge_prior = rng.rand(batch).astype(np.float32)
+
+    ref, ref_leaf, ref_eval = jax_mcts._materialize_scatter(
+        jax_trees, jnp.asarray(slot), jnp.asarray(parent), jnp.asarray(action),
+        jnp.asarray(child), jnp.asarray(hit_terminal), jnp.asarray(active),
+        jax_mcts.NodeState(**{k: jnp.asarray(v) for k, v in node.items()}),
+        jnp.asarray(done), jnp.asarray(reward), jnp.asarray(edge_prior))
+    t = torch.from_numpy
+    out, leaf, needs_eval = mcts._materialize_scatter(
+        trees, t(slot).long(), t(parent), t(action), t(child), t(hit_terminal),
+        t(active), mcts.NodeState(**{k: t(v) for k, v in node.items()}), t(done),
+        t(reward), t(edge_prior))
+    assert_tree_equal(ref, out)
+    np.testing.assert_array_equal(np.asarray(ref_leaf), leaf.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_eval), needs_eval.numpy())
+    assert 0 < int(np.asarray(ref_eval).sum()) < batch
+
+    even = (rng.rand(batch, capacity) < 0.2).astype(np.float32)
+    odd = ((rng.rand(batch, capacity) < 0.2) & (even == 0)).astype(np.float32)
+    depth = rng.randint(0, 5, size=batch).astype(np.int32)
+    prior = np.where(rng.rand(batch, a) < 0.8, rng.rand(batch, a), -1.0).astype(np.float32)
+    value = rng.uniform(-1, 1, size=batch).astype(np.float32)
+    ref = jax_mcts._expand_backup_scatter(
+        ref, jnp.asarray(slot), ref_leaf, ref_eval, jnp.asarray(active), jnp.asarray(even),
+        jnp.asarray(odd), jnp.asarray(depth), jnp.asarray(prior), jnp.asarray(value))
+    out = mcts._expand_backup_scatter(out, t(slot).long(), leaf, needs_eval, t(active),
+                                      t(even), t(odd), t(depth), t(prior), t(value))
+    assert_tree_equal(ref, out)

@@ -1,22 +1,27 @@
 """Where one go9 self-play move of the PyTorch port spends its time.
 
-    python3 tools/profile_torch_selfplay.py
+    python3 tools/profile_torch_selfplay.py [--moves 3] [--rate-only]
 
 Runs the port's go9 self-play step (B=1024 games, bf16 net with random
-weights, 200 simulations, reuse, max_new_sims=120) on the GPU: one warm-up move, one
-timed move without the profiler, then one move under ``torch.profiler``.
+weights, 200 simulations, reuse, max_new_sims=120) on the GPU: one warm-up move,
+``--moves`` timed moves without the profiler (their mean gives env-steps/s),
+then one move under ``torch.profiler`` (skipped with ``--rate-only``).
 The search's phases are wrapped in ``record_function`` ranges by this script
 (the port itself carries no instrumentation), so the table gives, per phase,
 the host time inside its calls and the span its work covers on the device
 (idle gaps included). Prints the card, the move times, the device-busy share
-and kernel launches of the profiled move, the phase table, the top
-kernels and K1's own row (launches and device time per launch in the
-move). Last, it profiles 20 select calls on the trees the move left and
-prints every device kernel of one call. Needs a CUDA device.
+and kernel launches of the profiled move, the phase table (with the
+kernel launches each phase makes, counted from the ``cudaLaunchKernel``
+and ``cuLaunchKernel`` calls under its range), the top kernels, and the
+own rows of K1 (select) and K2 (the tree-row writer): launches and device
+time per launch in the move. Last, it profiles 20 select calls on the
+trees the move left and prints every device kernel of one call. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import os
 import sys
@@ -38,7 +43,7 @@ from alpha_zero_tpu_torch.training.pipeline import build_engine  # noqa: E402
 from alpha_zero_tpu_torch.utils.device import card_line, device_kernels  # noqa: E402
 
 BATCH = 1024
-SELECT_KERNEL = "select_leaf_kernel"  # K1's name in the trace
+KERNELS = {"K1": "select_leaf_kernel", "K2": "write_rows_kernel"}  # names in the trace
 PHASES = ("select", "gather_state", "engine_step", "materialize", "history",
           "net", "expand_backup", "reroot")
 
@@ -64,7 +69,27 @@ def _instrument() -> None:
     selfplay.make_eval_fn = lambda net: _ranged("net", make_eval_fn(net))
 
 
-def main() -> None:
+def _launches_per_phase(events) -> dict:
+    """``{phase or None: kernel launches}``: every ``cudaLaunchKernel`` or
+    ``cuLaunchKernel`` call (and their variants), under the innermost phase
+    range around it."""
+    counts = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or "LaunchKernel" not in e.name:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and parent.name not in PHASES:
+            parent = parent.cpu_parent
+        key = None if parent is None else parent.name
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--moves", type=int, default=3, help="timed moves without the profiler")
+    p.add_argument("--rate-only", action="store_true", help="no profiled move")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_selfplay: CUDA is not available")
     card = card_line()
@@ -89,7 +114,13 @@ def main() -> None:
         return time.time() - t0
 
     move()  # warm-up
-    plain_s = move()
+    times = [move() for _ in range(args.moves)]
+    plain_s = sum(times) / len(times)
+    print(f"card: {card}; batch {BATCH}; moves without profiler "
+          + ", ".join(f"{x:.3f}" for x in times) + f" s: mean {plain_s:.3f} s, "
+          f"{BATCH / plain_s:.1f} env-steps/s", flush=True)
+    if args.rate_only:
+        return
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_s = move()
     events = prof.key_averages()
@@ -98,25 +129,27 @@ def main() -> None:
     spans = {e.key: e for e in on_device if e.key in PHASES}
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"card: {card}; batch {BATCH}")
-    print(f"move without profiler {plain_s:.3f} s ({BATCH / plain_s:.1f} "
-          f"env-steps/s); profiled move {profiled_s:.3f} s")
+    print(f"profiled move {profiled_s:.3f} s")
     print(f"profiled move: {launches} kernel launches, device busy "
           f"{busy_us / 1e3:.1f} ms = {busy_us / 1e4 / profiled_s:.1f}% of the "
           f"profiled move, {busy_us / 1e4 / plain_s:.1f}% of the move without it")
-    print(f"{'phase':<14}{'calls':>7}{'host ms':>10}{'device span ms':>16}")
+    launched = _launches_per_phase(prof.events())
+    print(f"{'phase':<14}{'calls':>7}{'host ms':>10}{'device span ms':>16}{'launches':>10}")
     host = [e for e in events if e.key in PHASES and e not in on_device]
     for e in sorted(host, key=lambda e: -e.cpu_time_total):
         span = spans[e.key].device_time_total / 1e3 if e.key in spans else 0.0
-        print(f"{e.key:<14}{e.count:>7}{e.cpu_time_total / 1e3:>10.1f}{span:>16.1f}")
+        print(f"{e.key:<14}{e.count:>7}{e.cpu_time_total / 1e3:>10.1f}{span:>16.1f}"
+              f"{launched.get(e.key, 0):>10}")
+    print(f"launches outside the phases: {launched.get(None, 0)}")
     print("top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
     for e in kernels:
-        if SELECT_KERNEL in e.key:
-            print(f"K1 {e.key} in the move: {e.count} launches, "
-                  f"{e.self_device_time_total / 1e3:.2f} ms, "
-                  f"{e.self_device_time_total / e.count:.3f} us per launch")
+        for label, name in KERNELS.items():
+            if name in e.key:
+                print(f"{label} {e.key} in the move: {e.count} launches, "
+                      f"{e.self_device_time_total / 1e3:.2f} ms, "
+                      f"{e.self_device_time_total / e.count:.3f} us per launch")
 
     # Every device kernel of one select call, on the trees the move left.
     kw = dict(path_cap=min(cfg.search.num_simulations + 1, engine.max_steps + 2),
