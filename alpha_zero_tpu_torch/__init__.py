@@ -3,13 +3,19 @@
 Mirrors the layout and names of the JAX package module for module, so each
 function's counterpart is found under the same path:
 
-- ``envs``     — batched Go engine over tensors with a leading batch dim.
-- ``models``   — the policy/value ResNet as an ``nn.Module``, plus a loader
-  for Flax weights.
+- ``envs``     — batched Go and Gomoku engines over tensors with a leading
+  batch dim.
+- ``models``   — the policy/value ResNet as an ``nn.Module`` (Flax-style
+  train-mode BatchNorm), plus a loader for Flax weights.
 - ``ops``      — hand-written CUDA kernels (``csrc/``), their build, their
-  wrappers and plain PyTorch versions.
+  wrappers and plain PyTorch versions; dihedral augmentation.
 - ``search``   — batched MCTS over fixed-capacity array trees.
-- ``training`` — the batched self-play step.
+- ``training`` — the batched self-play step, the learner, replay,
+  checkpoints and the single-host ``Trainer``.
+- ``cli``      — ``python -m alpha_zero_tpu_torch.cli.train``.
+
+Not ported yet: the evaluator and ``eval/``, the match/play/gui/plot/
+analysis CLIs, ``Trainer.profile`` and the multi-device paths.
 
 The package imports torch and numpy only — never JAX, Flax or the JAX
 package. Entry points run on ``device="cuda"`` unless the caller asks for

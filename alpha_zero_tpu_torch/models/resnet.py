@@ -10,12 +10,15 @@ permutes to NCHW inside. The heads flatten in HWC order, as the Flax net
 does, so Flax Dense kernels load without permuting (``params_from_flax``).
 Inference in bf16 mirrors Flax ``dtype=bfloat16``: the module's parameters
 are bf16, logits are cast to f32 and tanh of the value is taken in f32.
+Training keeps float32 parameters and computes in the config's dtype under
+``torch.autocast`` (``training/learner.py``); in train mode the BatchNorm
+layers are Flax's (``BatchNorm``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,8 +39,31 @@ def _conv(cin: int, cout: int, k: int, pad: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, padding=pad, bias=False)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode forward is Flax's ``BatchNorm``:
+    the batch moments in float32 (float64 for a float64 input), the
+    variance biased (E[x^2] - E[x]^2, clipped at 0), the input normalized
+    with them, and the running statistics updated with the same biased
+    variance (torch's own forward updates them with the unbiased one). Eval
+    mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
 
 class ResNetBlock(nn.Module):
@@ -114,9 +140,11 @@ class AlphaZeroNet(nn.Module):
         return NetworkOutputs(pi_logits=pi_logits.float(), value=value)
 
 
-def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0) -> AlphaZeroNet:
+def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0,
+                  dtype: Optional[str] = None) -> AlphaZeroNet:
     """The net for an (EnvConfig, NetworkConfig) pair, with random weights
-    drawn from ``seed``, in eval mode, in the config's inference dtype."""
+    drawn from ``seed``, in eval mode, with parameters in ``dtype`` (default:
+    the config's inference dtype)."""
     dev = resolve_device(device)
     net = AlphaZeroNet(
         num_actions=env_cfg.num_actions,
@@ -128,7 +156,7 @@ def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0) -> AlphaZeroNe
         gomoku=net_cfg.gomoku,
     )
     net.reset_parameters(torch.Generator().manual_seed(seed))
-    dtype = getattr(torch, net_cfg.inference_dtype)
+    dtype = getattr(torch, dtype or net_cfg.inference_dtype)
     return net.to(device=dev, dtype=dtype).eval()
 
 
@@ -143,9 +171,11 @@ def _dense(prefix: str, p: dict, out: dict) -> None:
     out[prefix + ".bias"] = torch.from_numpy(np.array(p["bias"]))
 
 
-def _batchnorm(prefix: str, p: dict, s: dict, out: dict) -> None:
+def _batchnorm(prefix: str, p: dict, s, out: dict) -> None:
     out[prefix + ".weight"] = torch.from_numpy(np.array(p["scale"]))
     out[prefix + ".bias"] = torch.from_numpy(np.array(p["bias"]))
+    if s is None:
+        return
     out[prefix + ".running_mean"] = torch.from_numpy(np.array(s["mean"]))
     out[prefix + ".running_var"] = torch.from_numpy(np.array(s["var"]))
     out[prefix + ".num_batches_tracked"] = torch.tensor(0)
@@ -153,24 +183,31 @@ def _batchnorm(prefix: str, p: dict, s: dict, out: dict) -> None:
 
 def params_from_flax(variables_np: dict) -> dict:
     """The Flax ``{"params", "batch_stats"}`` tree (numpy leaves) of the
-    JAX package's ``AlphaZeroNet`` as this module's ``state_dict``."""
-    params, stats = variables_np["params"], variables_np["batch_stats"]
+    JAX package's ``AlphaZeroNet`` as this module's ``state_dict``. Without
+    ``batch_stats`` (e.g. a tree shaped like the params, such as optax's
+    momentum trace), the parameters alone, by their ``state_dict`` names."""
+    params = variables_np["params"]
+    stats = variables_np.get("batch_stats")
+
+    def sub(tree, key):
+        return None if tree is None else tree[key]
+
     out: dict = {}
     out["stem_conv.weight"] = _conv_weight(params["Conv_0"]["kernel"])
-    _batchnorm("stem_bn", params["BatchNorm_0"], stats["BatchNorm_0"], out)
+    _batchnorm("stem_bn", params["BatchNorm_0"], sub(stats, "BatchNorm_0"), out)
     i = 0
     while f"ResNetBlock_{i}" in params:
-        bp, bs = params[f"ResNetBlock_{i}"], stats[f"ResNetBlock_{i}"]
+        bp, bs = params[f"ResNetBlock_{i}"], sub(stats, f"ResNetBlock_{i}")
         out[f"blocks.{i}.conv1.weight"] = _conv_weight(bp["Conv_0"]["kernel"])
-        _batchnorm(f"blocks.{i}.bn1", bp["BatchNorm_0"], bs["BatchNorm_0"], out)
+        _batchnorm(f"blocks.{i}.bn1", bp["BatchNorm_0"], sub(bs, "BatchNorm_0"), out)
         out[f"blocks.{i}.conv2.weight"] = _conv_weight(bp["Conv_1"]["kernel"])
-        _batchnorm(f"blocks.{i}.bn2", bp["BatchNorm_1"], bs["BatchNorm_1"], out)
+        _batchnorm(f"blocks.{i}.bn2", bp["BatchNorm_1"], sub(bs, "BatchNorm_1"), out)
         i += 1
     out["policy_conv.weight"] = _conv_weight(params["Conv_1"]["kernel"])
-    _batchnorm("policy_bn", params["BatchNorm_1"], stats["BatchNorm_1"], out)
+    _batchnorm("policy_bn", params["BatchNorm_1"], sub(stats, "BatchNorm_1"), out)
     _dense("policy_fc", params["Dense_0"], out)
     out["value_conv.weight"] = _conv_weight(params["Conv_2"]["kernel"])
-    _batchnorm("value_bn", params["BatchNorm_2"], stats["BatchNorm_2"], out)
+    _batchnorm("value_bn", params["BatchNorm_2"], sub(stats, "BatchNorm_2"), out)
     _dense("value_fc1", params["Dense_1"], out)
     _dense("value_fc2", params["Dense_2"], out)
     return out

@@ -259,6 +259,15 @@ def _add_dirichlet_noise(tree: Tree, noise: torch.Tensor, eps: float) -> Tree:
 # ---------------------------------------------------------------------------
 
 
+def materialize_arrays(tree: Tree) -> list:
+    """The 13 arrays a materialize write sets, in order: the ``NodeState``
+    fields, parent_index, action_from_parent, node_done, node_reward,
+    node_N, node_W, node_P."""
+    return [getattr(tree.states, f.name) for f in dataclasses.fields(NodeState)] + [
+        tree.parent_index, tree.action_from_parent, tree.node_done, tree.node_reward,
+        tree.node_N, tree.node_W, tree.node_P]
+
+
 def _materialize_scatter(tree: Tree, slot: torch.Tensor, parent: torch.Tensor,
                          action: torch.Tensor, existing_child: torch.Tensor,
                          hit_terminal: torch.Tensor, active: torch.Tensor,
@@ -272,14 +281,11 @@ def _materialize_scatter(tree: Tree, slot: torch.Tensor, parent: torch.Tensor,
     slot_i = slot.clamp(0, capacity - 1).long()
 
     zeros = torch.zeros((batch,), device=slot.device)
-    pairs = [(getattr(tree.states, f.name), getattr(new_node, f.name))
-             for f in dataclasses.fields(NodeState)]
-    pairs += [(tree.parent_index, parent), (tree.action_from_parent, action),
-              (tree.node_done, new_done), (tree.node_reward, new_reward),
-              (tree.node_N, zeros), (tree.node_W, zeros), (tree.node_P, edge_prior)]
+    rows = [getattr(new_node, f.name) for f in dataclasses.fields(NodeState)]
+    rows += [parent, action, new_done, new_reward, zeros, zeros, edge_prior]
+    arrays = materialize_arrays(tree)
     scatter_kernels.write_rows(
-        [arr for arr, _ in pairs],
-        [rows.to(arr.dtype).contiguous() for arr, rows in pairs],
+        arrays, [r.to(arr.dtype).contiguous() for arr, r in zip(arrays, rows)],
         torch.where(is_new, slot_i, -1).to(torch.int32))
     tree.num_nodes.add_(is_new.float())
     leaf = torch.where(is_new, slot_i, existing_child.clamp(0, capacity - 1).long())

@@ -1,0 +1,147 @@
+"""Train-state checkpoints, and the JAX package's train state carried over.
+
+The port of ``alpha_zero_tpu.training.checkpoint``, with ``torch.save`` in
+place of orbax. A checkpoint ``ckpt_dir/training_steps_{t}`` is one file
+holding the float32 ``state_dict`` (BN running statistics included), the
+optimizer state (momentum buffers), the scheduler state and
+``training_steps``, so training resumes bit-exact. It is written to a
+temporary file first and moved into place with ``os.replace``.
+
+``train_state_from_flax`` turns a JAX ``TrainState`` (numpy leaves: params,
+batch_stats, the optax momentum trace and the step) into the port's
+``TrainState``; ``tools/ckpt_to_torch.py`` uses it to convert orbax
+checkpoints. This package never reads orbax itself.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Mapping, Optional
+
+import torch
+
+from alpha_zero_tpu_torch.models.resnet import build_network, params_from_flax
+from alpha_zero_tpu_torch.training.learner import TrainState, create_train_state
+from alpha_zero_tpu_torch.utils.device import resolve_device
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, training_steps: int) -> str:
+    """Writes ``ckpt_dir/training_steps_{t}`` atomically; returns its path."""
+    path = os.path.abspath(os.path.join(ckpt_dir, f"training_steps_{training_steps}"))
+    payload = {
+        "net": state.net.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "training_steps": int(state.training_steps),
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(path: str, target: TrainState) -> TrainState:
+    """Loads the checkpoint at ``path`` into ``target`` (a state of the same
+    architecture, on its device) and returns it."""
+    device = next(target.net.parameters()).device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    target.net.load_state_dict(payload["net"])
+    target.optimizer.load_state_dict(payload["optimizer"])
+    target.scheduler.load_state_dict(payload["scheduler"])
+    target.training_steps = int(payload["training_steps"])
+    return target
+
+
+def states_equal(a: TrainState, b: TrainState) -> bool:
+    """Two states bit for bit: weights and BN buffers, momentum buffers,
+    schedule and step (what a checkpoint must give back)."""
+    sa, sb = a.net.state_dict(), b.net.state_dict()
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return (a.training_steps == b.training_steps and sa.keys() == sb.keys()
+            and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and oa["param_groups"] == ob["param_groups"]
+            and oa["state"].keys() == ob["state"].keys()
+            and all(torch.equal(oa["state"][k]["momentum_buffer"],
+                                ob["state"][k]["momentum_buffer"]) for k in oa["state"])
+            and a.scheduler.state_dict() == b.scheduler.state_dict())
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    candidates = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("training_steps_"):
+            try:
+                candidates.append((int(name.rsplit("_", 1)[1]), name))
+            except ValueError:
+                continue
+    if not candidates:
+        return None
+    return os.path.join(ckpt_dir, max(candidates)[1])
+
+
+def checkpoint_step(path: str) -> int:
+    return int(os.path.basename(path).rsplit("_", 1)[1])
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's train state
+# ---------------------------------------------------------------------------
+
+
+def _momentum_trace(opt_state: Any) -> Optional[Mapping]:
+    """The ``trace`` tree of optax's ``TraceState`` inside the chain state
+    (a tuple of named tuples, or the nested dicts of an untyped restore)."""
+    if isinstance(opt_state, Mapping):
+        if "trace" in opt_state:
+            return opt_state["trace"]
+        items = list(opt_state.values())
+    elif hasattr(opt_state, "trace"):
+        return opt_state.trace
+    elif isinstance(opt_state, (list, tuple)):
+        items = list(opt_state)
+    else:
+        return None
+    for item in items:
+        trace = _momentum_trace(item)
+        if trace is not None:
+            return trace
+    return None
+
+
+def _lr_at(train_cfg, step: int) -> float:
+    """The rate ``MultiStepLR`` holds after ``step`` scheduler steps."""
+    lr = train_cfg.init_lr
+    for milestone in sorted(int(m) for m in train_cfg.lr_milestones):
+        if step >= milestone:
+            lr *= train_cfg.lr_decay
+    return lr
+
+
+def train_state_from_flax(np_tree: Mapping, env_cfg, net_cfg, train_cfg,
+                          device="cuda") -> TrainState:
+    """The port's ``TrainState`` from a JAX ``TrainState`` given as a mapping
+    of numpy trees ``{"params", "batch_stats", "opt_state",
+    "training_steps"}``: float32 weights and BN statistics
+    (``params_from_flax``), optax's momentum trace as SGD's momentum
+    buffers, the schedule at the step. Needs no JAX."""
+    dev = resolve_device(device)
+    net = build_network(env_cfg, net_cfg, device=dev, dtype="float32")
+    net.load_state_dict(params_from_flax(np_tree))
+    state = create_train_state(net, train_cfg)
+    steps = int(np_tree["training_steps"])
+    trace = _momentum_trace(np_tree["opt_state"])
+    if trace is None:
+        raise ValueError("opt_state holds no momentum trace (optax TraceState)")
+    buffers = params_from_flax({"params": trace})
+    for name, param in state.net.named_parameters():
+        state.optimizer.state[param]["momentum_buffer"] = buffers[name].to(dev).clone()
+    lr = _lr_at(train_cfg, steps)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    sched = state.scheduler.state_dict()
+    sched.update(last_epoch=steps, _last_lr=[lr] * len(state.optimizer.param_groups))
+    state.scheduler.load_state_dict(sched)
+    state.training_steps = steps
+    return state

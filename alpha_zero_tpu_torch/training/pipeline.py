@@ -1,17 +1,473 @@
-"""Training pipeline pieces of the port.
+"""Single-host actor/learner pipeline as a generation loop on one device.
 
-Only ``build_engine`` is ported so far (``alpha_zero_tpu.training.pipeline``
-holds the trainer, the resign controller and the harvest loop).
+The port of ``alpha_zero_tpu.training.pipeline`` (one host, one device).
+The actor fleet is one batched self-play step over all games, so the
+topology is a sequential loop:
+
+    repeat:
+      1. self-play until ``games_per_ckpt`` new games finish
+         (``min_games`` for the very first generation)
+      2. run ``ckpt_interval`` SGD steps on replay samples
+      3. checkpoint, refresh the self-play net, CSV metrics and
+         resign-threshold controller updates
+
+Kept from the JAX package: games-per-checkpoint pacing, the dynamic
+resignation threshold with hard resets and FP-rate bookkeeping, the
+harvest two steps behind the dispatch, CSV schemas, SGF dumps, replay
+save/restore, checkpoint resume with the crash-resume game quota, the
+straddling-games option (``train.drop_straddling_games``).
+
+The learner keeps float32 master weights; self-play runs a copy in the
+config's inference dtype (bf16 at go9), refreshed from the master weights
+after every train generation.
+
+Not ported yet: the evaluator (synchronous and async), ``Trainer.profile``,
+and the multi-device and multi-host paths (``parallel.dp * parallel.mdl >
+1`` or a coordinator address raise).
 """
 
 from __future__ import annotations
 
+import copy
+import csv
+import os
+from collections import deque, namedtuple
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from alpha_zero_tpu_torch.config import AlphaZeroConfig
 from alpha_zero_tpu_torch.envs.go import GoEngine
+from alpha_zero_tpu_torch.envs.gomoku import GomokuEngine
+from alpha_zero_tpu_torch.models.resnet import build_network
+from alpha_zero_tpu_torch.ops.symmetry import random_transform_id
+from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
+from alpha_zero_tpu_torch.training import learner as learner_lib
+from alpha_zero_tpu_torch.training import selfplay as selfplay_lib
+from alpha_zero_tpu_torch.training.replay import UniformReplay
+from alpha_zero_tpu_torch.utils import sgf as sgf_lib
+from alpha_zero_tpu_torch.utils.csv_writer import CsvWriter
+from alpha_zero_tpu_torch.utils.device import resolve_device
+from alpha_zero_tpu_torch.utils.logging import Timer, create_logger, get_time_stamp
+
+_PlayerMove = namedtuple("PlayerMove", ["color", "move"])
 
 
-def build_engine(env_cfg) -> GoEngine:
-    """The engine for an EnvConfig. Go only: Gomoku is not ported yet."""
+def build_engine(env_cfg):
     if env_cfg.game == "go":
         return GoEngine(board_size=env_cfg.board_size, num_stack=env_cfg.num_stack,
                         komi=env_cfg.komi, max_steps=env_cfg.max_steps)
-    raise ValueError(f"game {env_cfg.game!r} is not ported to alpha_zero_tpu_torch")
+    if env_cfg.game == "gomoku":
+        return GomokuEngine(board_size=env_cfg.board_size, num_stack=env_cfg.num_stack,
+                            num_to_win=env_cfg.num_to_win, max_steps=env_cfg.max_steps)
+    raise ValueError(f"unknown game {env_cfg.game}")
+
+
+def maybe_adjust_resign_threshold(current_v: float, current_rate: float,
+                                  target_rate: float, min_v: float = -0.9999,
+                                  smoothing_factor: float = 0.5) -> float:
+    """Threshold controller update (reference pipeline.py:656-670)."""
+    rate_delta = current_rate - target_rate
+    if rate_delta <= 0:
+        return current_v
+    new_v = current_v + current_v * rate_delta
+    smoothed_v = smoothing_factor * new_v + (1 - smoothing_factor) * current_v
+    return round(max(min_v, smoothed_v), 4)
+
+
+class ResignController:
+    """Dynamic resignation threshold with FP-rate tracking, updated game by
+    game (reference pipeline.py:449-460, 519-553)."""
+
+    def __init__(self, resign_cfg, games_per_ckpt: int, logger) -> None:
+        self.cfg = resign_cfg
+        self.games_per_ckpt = games_per_ckpt
+        self.logger = logger
+        self.resign_count = 0
+        self.last_resign_count = 0
+        self.could_won_count = 0
+        if not resign_cfg.enabled:
+            self.threshold = -1.0
+        elif resign_cfg.no_resign_games > 0:
+            self.threshold = -1.0
+        else:
+            self.threshold = resign_cfg.init_resign_threshold
+
+    def on_game(self, stats: dict, num_games_added: int) -> None:
+        cfg = self.cfg
+        if not cfg.enabled or num_games_added < cfg.no_resign_games:
+            return
+        if stats.get("is_resign_disabled") and stats.get("is_marked_for_resign"):
+            self.resign_count += 1
+            if stats.get("is_could_won"):
+                self.could_won_count += 1
+
+        if num_games_added == cfg.no_resign_games or (
+            cfg.reset_fp_interval > 0 and num_games_added % cfg.reset_fp_interval == 0
+        ):
+            self.resign_count = self.last_resign_count = self.could_won_count = 0
+            self.threshold = cfg.init_resign_threshold
+            self.logger.info(f"Reset resignation threshold to {self.threshold}")
+            return
+
+        adjust_every = int(self.games_per_ckpt * 0.5 * cfg.disable_resign_ratio * 0.5)
+        if (
+            adjust_every > 0
+            and self.resign_count > self.last_resign_count
+            and self.resign_count % adjust_every == 0
+        ):
+            self.last_resign_count = self.resign_count
+            self._adjust()
+
+    def _adjust(self) -> None:
+        cfg = self.cfg
+        fp_rate = 0.0 if self.resign_count == 0 else round(
+            self.could_won_count / self.resign_count, 4
+        )
+        new_threshold = maybe_adjust_resign_threshold(
+            self.threshold, fp_rate, cfg.target_fp_rate
+        )
+        if new_threshold != self.threshold:
+            self.logger.info(
+                f"Resignation FP {fp_rate} vs target {cfg.target_fp_rate}: "
+                f"threshold {self.threshold} -> {new_threshold}"
+            )
+            self.threshold = new_threshold
+
+
+class Trainer:
+    """Owns all state of a training run; ``run()`` drives it to completion.
+
+    Randomness comes from three streams drawn from ``run.seed``: the initial
+    weights, the self-play draws (a generator on ``device``) and the
+    augmentation picks (a host generator)."""
+
+    def __init__(self, cfg: AlphaZeroConfig, device="cuda") -> None:
+        if cfg.parallel.dp * cfg.parallel.mdl > 1 or cfg.parallel.coordinator_address:
+            raise NotImplementedError(
+                "multi-device and multi-host training are not ported yet: set "
+                "parallel.dp=1, parallel.mdl=1 and no parallel.coordinator_address")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.logger = create_logger(cfg.run.log_level)
+        self.engine = build_engine(cfg.env)
+
+        for d in (cfg.run.ckpt_dir, cfg.run.logs_dir, cfg.run.save_sgf_dir):
+            if d:
+                os.makedirs(d, exist_ok=True)
+
+        n = cfg.env.board_size
+        obs_shape = (n, n, cfg.env.num_planes)
+        init_seed, sp_seed, aug_seed = np.random.SeedSequence(cfg.run.seed).generate_state(3)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(sp_seed))
+        self.aug_generator = torch.Generator().manual_seed(int(aug_seed))
+        net = build_network(cfg.env, cfg.network, device=self.device,
+                            seed=int(init_seed), dtype="float32")
+        self.train_state = learner_lib.create_train_state(net, cfg.train)
+        self.train_step = learner_lib.make_train_step(
+            cfg.network.inference_dtype, argument_data=cfg.train.argument_data)
+        # The self-play net: a copy in the inference dtype (see _refresh_play_net).
+        self.play_net = copy.deepcopy(net).to(
+            getattr(torch, cfg.network.inference_dtype)).eval()
+        self.selfplay_step = selfplay_lib.make_selfplay_step(
+            self.engine, self.play_net, cfg.search, cfg.resign,
+            deterministic=False, root_noise=True, device=self.device,
+        )
+
+        self.replay = UniformReplay(
+            capacity=cfg.train.replay_capacity, obs_shape=obs_shape,
+            num_actions=cfg.env.num_actions, seed=cfg.run.seed,
+        )
+        self.resign_controller = ResignController(
+            cfg.resign, cfg.train.games_per_ckpt, self.logger
+        )
+
+        batch = cfg.parallel.selfplay_batch_size
+        self.sp_state = selfplay_lib.init_selfplay_state(
+            self.engine, batch, self.generator,
+            resign_threshold=self.resign_controller.threshold,
+            disable_resign_ratio=cfg.resign.disable_resign_ratio,
+            reuse_num_simulations=(
+                cfg.search.num_simulations if cfg.search.reuse_subtree else None
+            ),
+            device=self.device,
+        )
+        self.accumulator = selfplay_lib.EpisodeAccumulator(
+            batch, num_planes=cfg.env.num_planes)
+
+        self.actor_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "actor0.csv"))
+        self.train_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "training.csv"),
+                                      buffer_size=1)
+        self._replay_path = os.path.join(cfg.run.ckpt_dir, "replay_state.npz")
+        self._last_replay_save = 0
+        self.timer = Timer()
+        self.training_steps = 0
+        self.played_games = 0
+        self.latest_ckpt_path: Optional[str] = None
+
+        # Resume.
+        if cfg.run.load_ckpt and os.path.exists(cfg.run.load_ckpt):
+            ckpt_lib.restore_checkpoint(cfg.run.load_ckpt, self.train_state)
+            self.training_steps = self.train_state.training_steps
+            self._refresh_play_net()
+            self.logger.info(
+                f"Resumed from checkpoint {cfg.run.load_ckpt} at step {self.training_steps}"
+            )
+        if cfg.run.load_replay and os.path.exists(cfg.run.load_replay):
+            try:
+                self.replay.load(cfg.run.load_replay)
+                self.logger.info(f"Loaded replay state from {cfg.run.load_replay}")
+            except Exception as e:  # noqa: BLE001
+                # A corrupt snapshot must not crash-loop a supervisor:
+                # resume with an empty replay.
+                self.logger.exception(
+                    f"Replay snapshot {cfg.run.load_replay} unreadable "
+                    f"({e}); starting with an empty replay")
+
+        # Resign-threshold continuity: the controller enables the threshold
+        # on the games_added == no_resign_games crossing, which a resumed run
+        # past that point never sees again. Re-seed from the last actor-CSV
+        # row's recorded threshold, falling back to the init threshold.
+        if (
+            cfg.resign.enabled
+            and self.engine.has_resign_move
+            and self.replay.num_games_added >= cfg.resign.no_resign_games
+            and self.resign_controller.threshold <= -1.0
+        ):
+            t = self._last_recorded_resign_threshold()
+            self.resign_controller.threshold = (
+                t if t is not None else cfg.resign.init_resign_threshold
+            )
+            self.logger.info(
+                f"Resign threshold resumed at {self.resign_controller.threshold}"
+            )
+
+    def _last_recorded_resign_threshold(self) -> Optional[float]:
+        """Last ACTIVE threshold in the actor CSV. Rows with -1.0 are
+        pre-activation; an active controller never reaches -1.0 (its floor
+        is -0.9999), so only values above -1.0 count."""
+        path = os.path.join(self.cfg.run.logs_dir, "actor0.csv")
+        try:
+            last = None
+            with open(path) as f:
+                for row in csv.DictReader(f):
+                    try:
+                        t = float(row["resign_threshold"])
+                    except (KeyError, ValueError):
+                        continue
+                    if t > -1.0:
+                        last = t
+            return last
+        except OSError:
+            return None
+
+    def _refresh_play_net(self) -> None:
+        """Copies the master weights into the self-play net, cast to its
+        dtype."""
+        self.play_net.load_state_dict(self.train_state.net.state_dict())
+
+    # ------------------------------------------------------------------
+    def _to_host(self, out: selfplay_lib.StepOutput):
+        """Starts the device-to-host copies of a step's outputs; returns
+        them with the event that marks their completion (None on the CPU)."""
+        if self.device.type != "cuda":
+            return out, None
+        host = selfplay_lib.StepOutput(*(x.to("cpu", non_blocking=True) for x in out))
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def selfplay_until(self, target_new_games: int,
+                       max_steps: Optional[int] = None) -> int:
+        """Runs self-play until ``target_new_games`` finish; returns how
+        many did."""
+        new_games = 0
+        steps = 0
+        # Harvest two steps behind the dispatch: step k's outputs are read
+        # on the host while steps k+1 and k+2 run. The price is two steps
+        # of staleness in the resign threshold and the game-count exit
+        # check; a drained tail may carry the count past the target.
+        in_flight = deque()
+        harvest_depth = 2
+        while new_games < target_new_games:
+            with self.timer:
+                self.sp_state, out = self.selfplay_step(
+                    self.sp_state, self.generator, self.resign_controller.threshold)
+                in_flight.append(self._to_host(out))
+                if len(in_flight) > harvest_depth:
+                    new_games += self._harvest_step(*in_flight.popleft())
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        while in_flight:
+            # Every output must still enter the accumulator (per-lane
+            # histories grow one move per step).
+            new_games += self._harvest_step(*in_flight.popleft())
+        return new_games
+
+    def _harvest_step(self, out: selfplay_lib.StepOutput,
+                      copied: Optional[torch.cuda.Event]) -> int:
+        """Host-side processing of one self-play step's output: accumulate
+        per-lane histories, fold finished games into replay / resign
+        controller / CSV / SGF. Returns the new-game count."""
+        cfg = self.cfg
+        if copied is not None:
+            copied.synchronize()
+        finished = self.accumulator.add_step(out)
+        if cfg.train.drop_straddling_games:
+            finished = [game for game in finished if not game.stats.pop("stale")]
+        else:
+            for game in finished:
+                game.stats.pop("stale", None)
+        for game in finished:
+            self.played_games += 1
+            self.replay.add_game(game.states, game.pi_probs, game.values)
+            self.resign_controller.on_game(game.stats, self.replay.num_games_added)
+
+            row = {
+                "datetime": get_time_stamp(),
+                "game_length": game.stats["game_length"],
+                "game_result": game.stats["game_result"],
+            }
+            if self.engine.has_pass_move:
+                row["num_passes"] = game.stats["num_passes"]
+            if self.engine.has_resign_move:
+                row["is_resign_disabled"] = game.stats["is_resign_disabled"]
+                row["is_marked_for_resign"] = game.stats["is_marked_for_resign"]
+                row["is_could_won"] = game.stats["is_could_won"]
+                row["marked_resign_player"] = game.stats["marked_resign_player"]
+                row["resign_threshold"] = self.resign_controller.threshold
+            row["time_per_game"] = round(self.timer.mean_time(), 4)
+            row["training_steps"] = self.training_steps
+            self.actor_writer.write(row)
+
+            if (
+                cfg.run.save_sgf_dir
+                and cfg.run.save_sgf_interval > 0
+                and self.played_games % cfg.run.save_sgf_interval == 0
+            ):
+                self._save_sgf(game)
+
+            if self.replay.num_games_added % 10000 == 0:
+                self.logger.info(
+                    f"Collected {self.replay.num_games_added} self-play games, "
+                    f"{self.replay.num_samples_added} samples."
+                )
+            if (
+                cfg.train.save_replay_interval > 0
+                and self.replay.num_games_added
+                >= self._last_replay_save + cfg.train.save_replay_interval
+            ):
+                # Threshold, not modulo: several games can finish in one
+                # lockstep step, hopping over the exact multiple.
+                self._last_replay_save = self.replay.num_games_added
+                self.replay.save(self._replay_path)
+        return len(finished)
+
+    def _save_sgf(self, game: selfplay_lib.FinishedGame) -> None:
+        content = sgf_lib.make_sgf(
+            board_size=self.cfg.env.board_size,
+            move_history=[_PlayerMove(c, m) for c, m in game.moves],
+            result_string=game.stats["game_result"],
+            ruleset="Chinese" if self.cfg.env.game == "go" else "",
+            komi=self.cfg.env.komi if self.cfg.env.game == "go" else "",
+            date=get_time_stamp(),
+        )
+        path = os.path.join(
+            self.cfg.run.save_sgf_dir,
+            f"actor0_{get_time_stamp(True)}_{self.played_games}.sgf",
+        )
+        with open(path, "w") as f:
+            f.write(content)
+
+    # ------------------------------------------------------------------
+    def train_generation(self) -> None:
+        """Runs ``ckpt_interval`` SGD steps, checkpoints, and refreshes the
+        self-play net."""
+        cfg = self.cfg
+        target = self.training_steps + cfg.train.ckpt_interval
+        while self.training_steps < target:
+            batch = self.replay.sample(cfg.train.batch_size)
+            if batch is None:
+                self.logger.warning("replay too small to sample; skipping update")
+                break
+            states, pis, values = (torch.from_numpy(x).to(self.device)
+                                   for x in (batch.state, batch.pi_prob, batch.value))
+            metrics = self.train_step(self.train_state, states, pis, values,
+                                      random_transform_id(self.aug_generator))
+            self.training_steps += 1
+            if (
+                self.training_steps % cfg.train.log_interval == 0
+                or self.training_steps % cfg.train.ckpt_interval == 0
+            ):
+                self.train_writer.write({
+                    "datetime": get_time_stamp(),
+                    "training_steps": self.training_steps,
+                    "policy_loss": float(metrics.policy_loss),
+                    "value_loss": float(metrics.value_loss),
+                    "learning_rate": metrics.learning_rate,
+                    "total_games": self.replay.num_games_added,
+                    "total_samples": self.replay.num_samples_added,
+                })
+
+        self.latest_ckpt_path = ckpt_lib.save_checkpoint(
+            cfg.run.ckpt_dir, self.train_state, self.training_steps
+        )
+        self._refresh_play_net()
+        if cfg.train.drop_straddling_games:
+            # Games in flight at the weight switch are discarded when they
+            # finish.
+            self.accumulator.mark_all_stale()
+        self.logger.info(
+            f"Checkpoint for step {self.training_steps} at {self.latest_ckpt_path}"
+        )
+
+    def _games_at_last_ckpt(self) -> Optional[int]:
+        """total_games at the last training.csv row whose step is at or
+        below the resumed checkpoint's."""
+        path = os.path.join(self.cfg.run.logs_dir, "training.csv")
+        try:
+            with open(path) as f:
+                best = None
+                for row in csv.DictReader(f):
+                    step = int(row["training_steps"])
+                    if step <= int(self.training_steps):
+                        best = int(row["total_games"])
+            return best
+        except (OSError, KeyError, ValueError):
+            return None
+
+    # ------------------------------------------------------------------
+    def run(self, on_checkpoint: Optional[Callable[["Trainer"], None]] = None) -> None:
+        """Full training loop to ``max_training_steps``."""
+        cfg = self.cfg
+        # The first generation is the min_games warm-up, which counts the
+        # replay's existing games. A run resumed from a checkpoint is past
+        # warm-up: it collects games_per_ckpt new games before training.
+        first = self.training_steps == 0
+        resumed = not first
+        while self.training_steps < cfg.train.max_training_steps:
+            target = cfg.train.min_games if first else cfg.train.games_per_ckpt
+            already = self.replay.num_games_added if first else 0
+            if resumed:
+                # Crash-resume mid-generation: credit the games collected
+                # since the last checkpoint (training.csv logs total_games
+                # per step; the restored replay carries num_games_added).
+                at_ckpt = self._games_at_last_ckpt()
+                if at_ckpt is not None:
+                    already = max(0, self.replay.num_games_added - at_ckpt)
+                resumed = False
+            self.selfplay_until(max(0, target - already))
+            first = False
+            self.train_generation()
+            if on_checkpoint is not None:
+                on_checkpoint(self)
+        self.actor_writer.close()
+        self.train_writer.close()
+
+
+def train(cfg: AlphaZeroConfig, device="cuda", **kwargs) -> Trainer:
+    trainer = Trainer(cfg, device=device)
+    trainer.run(**kwargs)
+    return trainer

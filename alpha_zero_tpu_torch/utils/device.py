@@ -9,10 +9,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and float32
-# operations/s outside the tensor cores; the L2 cache's size in bytes.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32
+# operations/s outside the tensor cores and dense bf16 tensor-core
+# operations/s; the L2 cache's size in bytes.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 L2_BYTES = 50 * 2**20
 
 

@@ -4,18 +4,31 @@
 
 Builds the port's CUDA kernels from ``alpha_zero_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card, checks the port on the
-card against its CPU path on small inputs, then drives the main path — go9
-self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with random
-weights, 200 simulations, subtree reuse, max_new_sims=120) at B=1024 games
-— through ``init_selfplay_state`` and ``make_selfplay_step``, and checks
-that every select of that run went through the select kernel K1 (120
-launches a move) and every tree write through the tree-row writer K2 (2
-launches a simulation, 240 a move). Last, it holds K2 and K3 bit-equal to
-their plain versions on the searched go9 tree's materialize and expand
-sets, on go19-shaped int16 rows and on 1-byte rows, then drives the
-row-scatter probe (``alpha_zero_tpu_torch/tools/dma_probe.py:run_probe``,
-the entry point of K3 and the timer of both) at go9 and gomoku13 tree
-shapes and checks that its run went through both kernels.
+card against its CPU path on small inputs, then drives the port's paths:
+
+- [5] go9 self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with
+  random weights, 200 simulations, subtree reuse, max_new_sims=120) at
+  B=1024 games through ``init_selfplay_state`` and ``make_selfplay_step``:
+  every select through the select kernel K1 (120 launches a move), every
+  tree write through the tree-row writer K2 (2 a simulation, 240 a move).
+- [6] K2 and K3 bit-equal to their plain versions on the searched go9
+  tree's materialize and expand sets, go19-shaped int16 rows and 1-byte
+  rows, then the row-scatter probe
+  (``alpha_zero_tpu_torch/tools/dma_probe.py:run_probe``, the entry point
+  of K3 and the timer of both) at go9 and gomoku13 tree shapes.
+- [7] gomoku13 self-play (13x13 Gomoku, 10 x 40 net in bf16, padding-3
+  stem, 380 simulations, reuse, max_new_sims=240) at B=1024: 240 K1 and
+  480 K2 launches a move, K2 bit-equal on the searched tree's sets (int16
+  2-byte rows), the Gomoku engine on the card equal to its CPU path.
+- [8] the training path: ``cli.train.main`` in-process at go9 full width
+  (bf16 compute, float32 master weights, 1024 self-play games, train batch
+  1024; ``env.max_steps=24`` is the one cut), two generations of 10 steps
+  with run and checkpoint directories under ``build/``: launches per
+  move as in [5], replay against the harvested games, finite losses, both
+  checkpoints restored bit-equal, the bf16 self-play net equal to the
+  master weights after each generation, a Trainer resumed from
+  ``training_steps_10`` taking the original's next step bit for bit; ms
+  per train step, samples/s, seconds per generation, peak memory.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -26,7 +39,9 @@ calls with the host's dispatch
 (``alpha_zero_tpu_torch/tools/select_bench.py:time_select``). K2 is timed
 the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
-sequence it replaced, and with every lane idle (its launch floor).
+sequence it replaced, and with every lane idle (its launch floor). The
+kernels' launch counts are set to 0 before each of [5], [7] and [8] and
+read after it; ``launches`` sums them, ``launches_by_path`` splits them.
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -47,6 +62,294 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 1024
 TIMED_MOVES = 3
+GOMOKU_TIMED_MOVES = 2
+TRAIN_STEPS = 20
+
+
+def play_moves(label, cfg, engine, net, moves, dev):
+    """Self-play ``moves`` moves of ``BATCH`` games of ``cfg`` through
+    ``init_selfplay_state``/``make_selfplay_step``, each checked: exactly
+    ``max_new_sims`` K1 and twice as many K2 launches, every move legal and
+    on an empty point, ``search_pi`` rows summing to 1, ``root_visits`` within
+    the budget, finite values. Returns the env-steps/s of all moves but the
+    first (a warm-up) and the self-play state after the last."""
+    import torch
+
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.training import selfplay
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sp = selfplay.init_selfplay_state(
+        engine, BATCH, gen, resign_threshold=-1.0,
+        disable_resign_ratio=cfg.resign.disable_resign_ratio,
+        reuse_num_simulations=cfg.search.num_simulations, device=dev)
+    loop_len = cfg.search.max_new_sims
+    torch.cuda.synchronize()
+    elapsed = 0.0
+    for move_idx in range(moves):
+        before, writes_before = select.launches, writer.launches
+        legal, board = sp.games.legal, sp.games.board.flatten(1)
+        t0 = time.time()
+        sp, out = step(sp, gen, -1.0)
+        torch.cuda.synchronize()
+        if move_idx > 0:
+            elapsed += time.time() - t0
+        where = f"{label} move {move_idx}"
+        if select.launches - before != loop_len:
+            raise SystemExit(f"{where}: {select.launches - before} select launches, "
+                             f"expected {loop_len}")
+        if writer.launches - writes_before != 2 * loop_len:
+            raise SystemExit(f"{where}: {writer.launches - writes_before} tree-row "
+                             f"writer launches, expected {2 * loop_len}")
+        move = out.move.long()
+        if not ((move >= 0) & (move < engine.num_actions)).all():
+            raise SystemExit(f"{where}: move out of range")
+        if not (legal.gather(1, move[:, None]) == 1.0).all():
+            raise SystemExit(f"{where}: illegal move")
+        on_board = move < board.shape[1]  # not a pass
+        stones = board.gather(1, move.clamp(max=board.shape[1] - 1)[:, None])[:, 0]
+        if not (stones[on_board] == 0).all():
+            raise SystemExit(f"{where}: a move on an occupied point")
+        if not torch.allclose(out.search_pi.sum(-1), torch.ones(BATCH, device=dev),
+                              atol=1e-5):
+            raise SystemExit(f"{where}: search_pi rows do not sum to 1")
+        if not (out.root_visits <= cfg.search.num_simulations).all():
+            raise SystemExit(f"{where}: root_visits above the budget")
+        if not all(torch.isfinite(x).all() for x in (out.root_q, out.best_child_q)):
+            raise SystemExit(f"{where}: non-finite values")
+    return BATCH * (moves - 1) / elapsed, sp
+
+
+def check_engine_on_card(label, engine, games, dev):
+    """``games`` random games through the engine on the card and on the
+    CPU, to their end; every field equal after every step."""
+    import torch
+
+    rng = torch.Generator().manual_seed(3)
+    s_cpu = engine.init_batch(games, device="cpu")
+    s_gpu = engine.init_batch(games, device=dev)
+    for i in range(engine.max_steps + 1):
+        weights = s_cpu.legal + s_cpu.done[:, None].float()  # any move once done
+        moves = torch.multinomial(weights, 1, generator=rng)[:, 0].to(torch.int32)
+        s_cpu = engine.step_batch(s_cpu, moves)
+        s_gpu = engine.step_batch(s_gpu, moves.to(dev))
+        on_card = s_gpu.to_numpy()
+        for key, val in s_cpu.to_numpy().items():
+            if not (on_card[key] == val).all():
+                raise SystemExit(f"{label} engine on the card != CPU at move {i}: {key}")
+        if bool(s_cpu.done.all()):
+            break
+    if not bool(s_cpu.done.all()):
+        raise SystemExit(f"{label} engine: games did not end")
+    print(f"{label} engine on the card == CPU: {games} random games to their end "
+          f"({i + 1} moves), every field", flush=True)
+
+
+def train_path(card, dev) -> dict:
+    """[8]: ``cli.train.main`` in-process at go9 full width (10 x 128, bf16
+    compute, float32 master weights, 1024 self-play games, train batch
+    1024), cut only in game length (``env.max_steps=24``), two generations
+    of 10 steps. Checks the launches of every self-play move, the replay
+    against the harvested games, finite losses, both checkpoints restored
+    bit-equal, the self-play net after each generation, and a resumed
+    Trainer's next step bit-equal to the original's; times the train step."""
+    import copy
+    import csv
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from alpha_zero_tpu_torch.cli import train as cli_train
+    from alpha_zero_tpu_torch.cli.common import resolve_config
+    from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
+    from alpha_zero_tpu_torch.training import learner, pipeline, selfplay
+    from alpha_zero_tpu_torch.utils.device import BF16_OPS_PER_S
+
+    run_dir = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
+    sets = [f"parallel.selfplay_batch_size={BATCH}", f"train.batch_size={BATCH}",
+            "env.max_steps=24", f"train.min_games={BATCH}", f"train.games_per_ckpt={BATCH}",
+            "train.ckpt_interval=10", f"train.max_training_steps={TRAIN_STEPS}",
+            f"run.ckpt_dir={ckpt_dir}", f"run.logs_dir={logs_dir}"]
+    argv = ["--config", "go9", "--no-eval", "--device", str(dev)] + [
+        x for v in sets for x in ("--set", v)]
+    cfg = resolve_config("go9", sets)
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    seen = {"moves": [], "selfplay_s": [], "generation_s": [], "checkpoint_s": [],
+            "snapshots": {}, "trainer": None}
+    make_step, selfplay_until = selfplay.make_selfplay_step, pipeline.Trainer.selfplay_until
+    train_generation, save = pipeline.Trainer.train_generation, ckpt_lib.save_checkpoint
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def counting_make(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(*a, **k):
+            s0, w0 = select.launches, writer.launches
+            out = step(*a, **k)
+            seen["moves"].append((select.launches - s0, writer.launches - w0))
+            return out
+        return counted
+
+    def generation(self):
+        timed(train_generation, "generation_s")(self)
+        master = self.train_state.net.state_dict()
+        for name, value in self.play_net.state_dict().items():
+            if not torch.equal(value, master[name].to(value.dtype)):
+                raise SystemExit(f"[8] self-play net != master weights cast to "
+                                 f"{value.dtype} after step {self.training_steps}: {name}")
+        seen["snapshots"][self.training_steps] = copy.deepcopy(self.train_state)
+        seen["trainer"] = self
+
+    torch.cuda.reset_peak_memory_stats()
+    selfplay.make_selfplay_step = counting_make
+    pipeline.Trainer.selfplay_until = timed(selfplay_until, "selfplay_s")
+    pipeline.Trainer.train_generation = generation
+    ckpt_lib.save_checkpoint = timed(save, "checkpoint_s")
+    t0 = time.time()
+    try:
+        cli_train.main(argv)
+    finally:
+        selfplay.make_selfplay_step = make_step
+        pipeline.Trainer.selfplay_until = selfplay_until
+        pipeline.Trainer.train_generation = train_generation
+        ckpt_lib.save_checkpoint = save
+    wall = time.time() - t0
+    trainer = seen["trainer"]
+    loop_len = cfg.search.max_new_sims
+    if trainer is None or trainer.training_steps != TRAIN_STEPS:
+        raise SystemExit("[8] the run did not reach its step budget")
+    if not seen["moves"] or set(seen["moves"]) != {(loop_len, 2 * loop_len)}:
+        raise SystemExit(f"[8] launches per self-play move {sorted(set(seen['moves']))}, "
+                         f"expected ({loop_len}, {2 * loop_len})")
+
+    # Replay against the harvested games; its contents.
+    replay = trainer.replay
+    with open(os.path.join(logs_dir, "actor0.csv")) as f:
+        games = list(csv.DictReader(f))
+    harvested = sum(int(g["game_length"]) for g in games)
+    if not replay.size == replay.num_samples_added == harvested > 0:
+        raise SystemExit(f"[8] replay holds {replay.size} samples, {harvested} harvested")
+    if replay.num_games_added != len(games):
+        raise SystemExit(f"[8] replay {replay.num_games_added} games, CSV {len(games)}")
+    n = replay.size
+    obs, pis, values = replay.states[:n], replay.pi_probs[:n], replay.values[:n]
+    if obs.dtype != np.int8 or not np.isin(obs, (0, 1)).all():
+        raise SystemExit("[8] replay observations are not int8 0/1 planes")
+    if not np.allclose(pis.sum(-1), 1.0, atol=1e-5):
+        raise SystemExit("[8] replay pi rows do not sum to 1")
+    if not np.isin(values, (-1.0, 0.0, 1.0)).all():
+        raise SystemExit("[8] replay values outside {-1, 0, 1}")
+    with open(os.path.join(logs_dir, "training.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [(float(r["policy_loss"]), float(r["value_loss"])) for r in rows]
+    if not losses or not all(math.isfinite(x) for pair in losses for x in pair):
+        raise SystemExit(f"[8] losses not finite: {losses}")
+
+    # Both checkpoints, restored into fresh states, bit-equal to the run's.
+    def fresh_state():
+        net = build_network(cfg.env, cfg.network, device=dev, dtype="float32")
+        return learner.create_train_state(net, cfg.train)
+
+    for step_count in (10, TRAIN_STEPS):
+        path = os.path.join(ckpt_dir, f"training_steps_{step_count}")
+        restored = ckpt_lib.restore_checkpoint(path, fresh_state())
+        if not ckpt_lib.states_equal(restored, seen["snapshots"][step_count]):
+            raise SystemExit(f"[8] {path} restores a different state")
+    if not ckpt_lib.states_equal(trainer.train_state, seen["snapshots"][TRAIN_STEPS]):
+        raise SystemExit("[8] the last checkpoint is not the Trainer's state")
+
+    # ms per train step at batch 1024 (CUDA events, after warm-up).
+    step = learner.make_train_step(cfg.network.inference_dtype, cfg.train.argument_data)
+    batch = replay.sample(BATCH)
+    inputs = tuple(torch.from_numpy(x).to(dev) for x in (batch.state, batch.pi_prob,
+                                                        batch.value))
+    timing_state = copy.deepcopy(trainer.train_state)
+    for tid in range(3):
+        step(timing_state, *inputs, tid)
+    reps = 20
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        step(timing_state, *inputs, i % 6)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / reps
+    # The step's least time: its convolution and matmul operations
+    # (forward and backward, as FlopCounterMode counts them) at the bf16
+    # tensor-core peak.
+    with FlopCounterMode(display=False) as flops:
+        step(timing_state, *inputs, 3)
+    step_flops = flops.get_total_flops()
+    bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+    del timing_state
+
+    # A Trainer resumed from training_steps_10 takes the same next step as
+    # the original (cuDNN deterministic: bit-equal).
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ckpt10 = os.path.join(ckpt_dir, "training_steps_10")
+        resumed = pipeline.Trainer(resolve_config("go9", sets + [f"run.load_ckpt={ckpt10}"]),
+                                   device=dev)
+        original = seen["snapshots"][10]
+        if not ckpt_lib.states_equal(resumed.train_state, original):
+            raise SystemExit("[8] the resumed Trainer's state != the original's at step 10")
+        m_orig = step(original, *inputs, 3)
+        m_res = step(resumed.train_state, *inputs, 3)
+        if not (ckpt_lib.states_equal(resumed.train_state, original)
+                and torch.equal(m_orig.policy_loss, m_res.policy_loss)
+                and torch.equal(m_orig.value_loss, m_res.value_loss)):
+            raise SystemExit("[8] the resumed Trainer's next step != the original's")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(ckpt_dir)  # 24 MB a checkpoint; the CSVs stay
+
+    gens = [{"selfplay_s": sp_s, "train_s": gen_s - ck_s, "checkpoint_s": ck_s}
+            for sp_s, gen_s, ck_s in zip(seen["selfplay_s"], seen["generation_s"],
+                                         seen["checkpoint_s"])]
+    out = {"config": "go9", "reduced": {"env.max_steps": 24}, "selfplay_batch": BATCH,
+           "train_batch": BATCH, "training_steps": TRAIN_STEPS,
+           "selfplay_moves": len(seen["moves"]), "games": len(games), "samples": n,
+           "train_step_ms": step_ms, "train_samples_per_s": BATCH * 1e3 / step_ms,
+           "train_step_flops": step_flops, "train_step_bound_ms": bound_ms,
+           "generations": gens, "wall_s": wall, "peak_memory_gib": peak,
+           "losses": losses}
+    print(f"[8] go9 training via cli.train (10 x 128, bf16 compute, f32 master weights; "
+          f"{BATCH} self-play games, train batch {BATCH}; env.max_steps=24 the only cut) "
+          f"on {card}: {len(seen['moves'])} self-play moves ({loop_len} K1 and "
+          f"{2 * loop_len} K2 launches each), {len(games)} games, {n} samples, "
+          f"{TRAIN_STEPS} train steps; {step_ms:.3f} ms per train step at batch {BATCH} "
+          f"({BATCH * 1e3 / step_ms:.0f} samples/s; bound {bound_ms:.3f} ms: "
+          f"{step_flops / 1e12:.3f} TFLOP at the bf16 peak); generations (self-play / train / "
+          f"checkpoint s): "
+          + "; ".join(f"{g['selfplay_s']:.2f} / {g['train_s']:.3f} / {g['checkpoint_s']:.3f}"
+                      for g in gens)
+          + f"; {wall:.1f} s in cli.train; peak memory {peak:.2f} GiB", flush=True)
+    print(f"[8] checkpoints training_steps_10/20 restored bit-equal; self-play net == "
+          f"master weights in bf16 after each generation; resumed Trainer's next step "
+          f"bit-equal; losses {losses}", flush=True)
+    print("[8] " + json.dumps(out), flush=True)
+    return out
 
 
 def main() -> None:
@@ -90,7 +393,6 @@ def main() -> None:
     cfg = config_lib.go9()
     engine = build_engine(cfg.env)
     net = build_network(cfg.env, cfg.network, device=dev, seed=0)
-    eval_fn = selfplay.make_eval_fn(net)
 
     # --- 3. K1 (select) against its plain version on the same trees.
     select = tree_kernels.select_leaf_batched
@@ -185,50 +487,15 @@ def main() -> None:
           f"(5x5, 16 sims, child_N exact), f32 net (max err {net_err:.2e})", flush=True)
 
     # --- 5. The main path: go9 self-play moves.
-    step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    sp = selfplay.init_selfplay_state(
-        engine, BATCH, gen, resign_threshold=-1.0,
-        disable_resign_ratio=cfg.resign.disable_resign_ratio,
-        reuse_num_simulations=cfg.search.num_simulations, device=dev)
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    select.launches = writer.launches = 0
+    rate, _ = play_moves("[5] go9", cfg, engine, net, 1 + TIMED_MOVES, dev)
+    launches = {"go9_selfplay": (select.launches, writer.launches)}
     loop_len = cfg.search.max_new_sims
-    torch.cuda.synchronize()
-    writer = scatter_kernels.write_rows
-    select.launches = 0
-    writer.launches = 0
-    elapsed = 0.0
-    for move_idx in range(1 + TIMED_MOVES):
-        before, writes_before = select.launches, writer.launches
-        legal = sp.games.legal
-        t0 = time.time()
-        sp, out = step(sp, gen, -1.0)
-        torch.cuda.synchronize()
-        if move_idx > 0:
-            elapsed += time.time() - t0
-        if select.launches - before != loop_len:
-            raise SystemExit(f"move {move_idx}: {select.launches - before} select "
-                             f"launches, expected {loop_len}")
-        if writer.launches - writes_before != 2 * loop_len:
-            raise SystemExit(f"move {move_idx}: {writer.launches - writes_before} "
-                             f"tree-row writer launches, expected {2 * loop_len}")
-        move = out.move.long()
-        if not ((move >= 0) & (move < engine.num_actions)).all():
-            raise SystemExit(f"move {move_idx}: move out of range")
-        if not (legal.gather(1, move[:, None]) == 1.0).all():
-            raise SystemExit(f"move {move_idx}: illegal move")
-        if not torch.allclose(out.search_pi.sum(-1), torch.ones(BATCH, device=dev),
-                              atol=1e-5):
-            raise SystemExit(f"move {move_idx}: search_pi rows do not sum to 1")
-        if not (out.root_visits <= cfg.search.num_simulations).all():
-            raise SystemExit(f"move {move_idx}: root_visits above the budget")
-        if not all(torch.isfinite(x).all() for x in (out.root_q, out.best_child_q)):
-            raise SystemExit(f"move {move_idx}: non-finite values")
-    launches, writer_launches = select.launches, writer.launches
-    rate = BATCH * TIMED_MOVES / elapsed
     print(f"[5] go9 self-play B={BATCH} 200 sims reuse max_new_sims={loop_len}: "
-          f"{rate:.1f} env-steps/s ({elapsed / TIMED_MOVES:.3f} s/move over "
-          f"{TIMED_MOVES} moves after 1 warm-up) on {card}; {launches} select "
-          f"launches ({loop_len}/move), {writer_launches} tree-row writer launches "
+          f"{rate:.1f} env-steps/s ({BATCH / rate:.3f} s/move over {TIMED_MOVES} "
+          f"moves after 1 warm-up) on {card}; {select.launches} select launches "
+          f"({loop_len}/move), {writer.launches} tree-row writer launches "
           f"({2 * loop_len}/move); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
@@ -292,17 +559,18 @@ def main() -> None:
               f"B={widx.shape[0]}, {int(((widx >= 0) & (widx < arrays[0].shape[1])).sum())} "
               f"lanes writing", flush=True)
 
-    tree = go9_tree
-    b, t = tree.node_N.shape
-    next_slot = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).long()
-    materialize = [getattr(tree.states, f.name) for f in dataclasses.fields(mcts.NodeState)]
-    materialize += [tree.parent_index, tree.action_from_parent, tree.node_done,
-                    tree.node_reward, tree.node_N, tree.node_W, tree.node_P]
-    for label, arrays in (("go9 searched tree, materialize set", materialize),
-                          ("go9 searched tree, expand set",
-                           [tree.child_P, tree.node_expanded])):
-        check_set(label, writer, arrays, [random_rows(x) for x in arrays],
-                  ragged(b, t, next_slot))
+    def check_tree(label, tree):
+        """K2 on a searched tree's materialize and expand sets, with random
+        rows for its next writes."""
+        b, t = tree.node_N.shape
+        next_slot = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).long()
+        for name, arrays in (("materialize", mcts.materialize_arrays(tree)),
+                             ("expand", [tree.child_P, tree.node_expanded])):
+            check_set(f"{label}, {name} set", writer, arrays,
+                      [random_rows(x) for x in arrays], ragged(b, t, next_slot))
+
+    check_tree("go9 searched tree", go9_tree)
+    b, t = go9_tree.node_N.shape
     go19 = dma_probe.tree_sets(128, 801, 362, sgen, dev)
     check_set("synthetic go19 sets (int16 722/724-byte rows)", writer,
               go19["materialize"][0] + go19["expand"][0],
@@ -350,6 +618,29 @@ def main() -> None:
           f"{exp['graph_ms']:.5f} warm, {exp['cold_ms']:.5f} cold; put_rows x2 "
           f"{set_line('put_rows', 'expand')['graph_ms']:.5f}", flush=True)
 
+    # --- 7. gomoku13 self-play: K1 and K2 at T=381, A=169 on a real search.
+    g_cfg = config_lib.gomoku13()
+    g_engine = build_engine(g_cfg.env)
+    g_net = build_network(g_cfg.env, g_cfg.network, device=dev, seed=0)
+    select.launches = writer.launches = 0
+    g_rate, g_sp = play_moves("[7] gomoku13", g_cfg, g_engine, g_net, 1 + GOMOKU_TIMED_MOVES,
+                              dev)
+    launches["gomoku13_selfplay"] = (select.launches, writer.launches)
+    g_loop = g_cfg.search.max_new_sims
+    print(f"[7] gomoku13 self-play B={BATCH} 380 sims reuse max_new_sims={g_loop} "
+          f"(10 x 40 net, bf16, padding-3 stem): {g_rate:.1f} env-steps/s "
+          f"({BATCH / g_rate:.3f} s/move over {GOMOKU_TIMED_MOVES} moves after 1 "
+          f"warm-up) on {card}; {select.launches} select launches ({g_loop}/move), "
+          f"{writer.launches} tree-row writer launches ({2 * g_loop}/move)", flush=True)
+    check_tree("gomoku13 searched tree (int16 2-byte labels/liberties rows)", g_sp.trees)
+    del g_sp
+    check_engine_on_card("[7]", g_engine, 64, dev)
+
+    # --- 8. The training path: cli.train at go9 full width.
+    select.launches = writer.launches = 0
+    train_path(card, dev)
+    launches["go9_training"] = (select.launches, writer.launches)
+
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with
     # the expand set and the single f32 array (vs index_copy_) beside it.
@@ -358,7 +649,8 @@ def main() -> None:
         "route": "cuda",
         "source": "alpha_zero_tpu_torch/csrc/scatter_rows.cu",
         "replaces": "tools/dma_probe.py:44",
-        "launches": writer_launches,
+        "launches": sum(w for _, w in launches.values()),
+        "launches_by_path": {k: w for k, (_, w) in launches.items()},
         "probe_launches": scatter_launches["write_rows"],
         "max_abs_err": scatter_err["scatter_rows"],
         "ms": mat["graph_ms"],
@@ -396,7 +688,8 @@ def main() -> None:
         "route": "cuda",
         "source": "alpha_zero_tpu_torch/csrc/select_leaf.cu",
         "replaces": "alpha_zero_tpu/ops/tree_kernels.py:58",
-        "launches": launches,
+        "launches": sum(k1 for k1, _ in launches.values()),
+        "launches_by_path": {k: k1 for k, (k1, _) in launches.items()},
         "max_abs_err": max_err,
         "ms": times["ms"],
         "cold_ms": times["cold_ms"],

@@ -15,7 +15,7 @@ from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.models.resnet import build_network
 from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
 from alpha_zero_tpu_torch.search import mcts
-from alpha_zero_tpu_torch.tools import dma_probe
+from alpha_zero_tpu_torch.tools import dma_probe, select_bench
 from alpha_zero_tpu_torch.tools.dma_probe import check_writer, tree_sets
 from alpha_zero_tpu_torch.tools.select_bench import FIELDS, synthetic_trees
 from alpha_zero_tpu_torch.training import selfplay
@@ -344,3 +344,157 @@ def test_bulk_writer_bit_equal_on_16_byte_rows(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         scatter_kernels.write_rows_bulk([arrays[1][:, :, :1].contiguous()],
                                         [rows[1][:, :1].contiguous()], widx)
+
+
+# ---------------------------------------------------------------------------
+# The training path: Gomoku engine, learner, Trainer
+# ---------------------------------------------------------------------------
+
+
+def test_gomoku_engine_card_matches_cpu(cuda_device):
+    """64 random 13x13 games, every field equal after every step."""
+    engine = build_engine(config_lib.gomoku13().env)
+    gen = torch.Generator().manual_seed(3)
+    s_cpu = engine.init_batch(64, device="cpu")
+    s_gpu = engine.init_batch(64, device=cuda_device)
+    for i in range(170):
+        weights = s_cpu.legal + s_cpu.done[:, None].float()  # any move once done
+        moves = torch.multinomial(weights, 1, generator=gen)[:, 0].to(torch.int32)
+        s_cpu = engine.step_batch(s_cpu, moves)
+        s_gpu = engine.step_batch(s_gpu, moves.to(cuda_device))
+        on_card = s_gpu.to_numpy()
+        for key, val in s_cpu.to_numpy().items():
+            assert (on_card[key] == val).all(), (i, key)
+        if bool(s_cpu.done.all()):
+            break
+    assert bool(s_cpu.done.all()) and bool((s_cpu.winner != 0).any())
+
+
+def test_writer_bit_equal_on_gomoku13_rows(cuda_device):
+    """K2 on a searched 13x13 Gomoku tree's materialize set, whose dummy
+    labels [1, 1] and group_libs [1] are int16: 2-byte rows."""
+    cfg = config_lib.gomoku13()
+    engine = build_engine(cfg.env)
+    net_cfg = dataclasses.replace(cfg.network, num_res_blocks=1, num_filters=8,
+                                  num_fc_units=8, inference_dtype="float32")
+    net = build_network(cfg.env, net_cfg, device=cuda_device, seed=0)
+    trees, _ = select_bench.grown_trees(cfg, engine, net, 37, 16, 8, seed=2,
+                                        device=cuda_device)
+    tree = trees[1]
+    arrays = mcts.materialize_arrays(tree)
+    assert arrays[1].dtype == arrays[2].dtype == torch.int16
+    assert arrays[1].shape[2:] == (1, 1) and arrays[2].shape[2:] == (1,)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    rows = [torch.randint(-100, 100, (37,) + a.shape[2:], generator=gen,
+                          device=cuda_device).to(a.dtype) for a in arrays]
+    widx = _ragged_widx(37, tree.node_N.shape[1], cuda_device)
+    for w in (widx, torch.full_like(widx, -1)):
+        check_writer(scatter_kernels.write_rows, arrays, rows, w)
+
+
+def _two_go9_train_steps(device, dtype):
+    """Two train steps of the go9-width net (10 x 128, weights of seed 0)
+    at batch 64 on ``device`` with parameters in ``dtype``; returns the
+    state and the losses [2, 2] (float64, on the CPU)."""
+    from alpha_zero_tpu_torch.training import learner
+
+    cfg = config_lib.go9()
+    net_cfg = dataclasses.replace(cfg.network, inference_dtype="float32")
+    net = build_network(cfg.env, net_cfg, device=device, seed=0, dtype="float32").to(dtype)
+    state = learner.create_train_state(net, cfg.train)
+    step = learner.make_train_step("float32")
+    gen = torch.Generator().manual_seed(0)
+    losses = []
+    for tid in (0, 3):
+        obs = (torch.rand((64, 9, 9, 17), generator=gen) < 0.3).to(torch.int8)
+        pi = torch.softmax(torch.randn((64, 82), generator=gen), -1).to(dtype)
+        values = torch.randint(-1, 2, (64,), generator=gen).to(dtype)
+        m = step(state, obs.to(device), pi.to(device), values.to(device), tid)
+        losses.append(torch.stack([m.policy_loss, m.value_loss]).double().cpu())
+    return state, torch.stack(losses)
+
+
+def _distance(a, b):
+    """(largest absolute difference of a weight or BN statistic, largest
+    relative L2 difference of a momentum buffer) between two states."""
+    sa, sb = a.net.state_dict(), b.net.state_dict()
+    weights = max(float((sa[k].double().cpu() - sb[k].double().cpu()).abs().max())
+                  for k in sa if sa[k].is_floating_point())
+    momentum = max(
+        float((a.optimizer.state[p]["momentum_buffer"].double().cpu()
+               - b.optimizer.state[q]["momentum_buffer"].double().cpu()).norm()
+              / b.optimizer.state[q]["momentum_buffer"].double().cpu().norm())
+        for p, q in zip(a.net.parameters(), b.net.parameters()))
+    return weights, momentum
+
+
+def test_go9_train_step_card_matches_cpu(cuda_device):
+    """Two float32 train steps of the go9-width net on the card (TF32 off)
+    and on the CPU, against the same two steps in float64 on the CPU, from
+    the same weights and batches. The step is ill-conditioned: Flax's
+    train-mode variance E[x^2] - E[x]^2 cancels, so float32 rounding alone
+    moves the weights after two steps by ~1e-4 and the momentum buffers by
+    ~1e-2 in relative L2 norm, whichever float32 implementation runs them
+    (the CPU's float32 steps: 8.4e-5 and 1.5e-2 from the float64 ones).
+    So the card is held to the CPU's own float32 accuracy: its distance to
+    the float64 steps at most three times the CPU's, and the losses within
+    1e-4 of the CPU's. On the H100 the card measured 1.3 times the CPU's
+    distance in the weights and 2.0 times in the momentum buffers: another
+    summation order, in the worst-conditioned tensor."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card, card_losses = _two_go9_train_steps(cuda_device, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    cpu, cpu_losses = _two_go9_train_steps("cpu", torch.float32)
+    exact, _ = _two_go9_train_steps("cpu", torch.float64)
+    card_err, cpu_err, apart = _distance(card, exact), _distance(cpu, exact), _distance(card, cpu)
+    print(f"go9 train steps, (max |weight/BN diff|, max momentum rel L2): card vs float64 "
+          f"{card_err}, CPU float32 vs float64 {cpu_err}, card vs CPU {apart}; losses "
+          f"card - CPU {(card_losses - cpu_losses).abs().max().item():.3e}")
+    assert float((card_losses - cpu_losses).abs().max()) < 1e-4
+    assert card_err[0] <= 3 * cpu_err[0] and card_err[1] <= 3 * cpu_err[1]
+
+
+def test_trainer_runs_on_the_card(cuda_device, tmp_path):
+    """A micro run of the Trainer on the card: two generations, both
+    checkpoints restorable bit-equal, the self-play net refreshed."""
+    import copy
+
+    from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
+    from alpha_zero_tpu_torch.training import learner, pipeline
+
+    cfg = config_lib.gomoku9()
+    cfg = dataclasses.replace(
+        cfg,
+        env=dataclasses.replace(cfg.env, board_size=5, num_stack=2, num_to_win=3),
+        network=dataclasses.replace(cfg.network, num_res_blocks=1, num_filters=8,
+                                    num_fc_units=8),
+        search=dataclasses.replace(cfg.search, num_simulations=8, max_new_sims=4),
+        train=dataclasses.replace(cfg.train, min_games=8, games_per_ckpt=8, batch_size=16,
+                                  max_training_steps=4, ckpt_interval=2, log_interval=1),
+        run=dataclasses.replace(cfg.run, ckpt_dir=str(tmp_path / "ckpt"),
+                                logs_dir=str(tmp_path / "logs")),
+        parallel=dataclasses.replace(cfg.parallel, selfplay_batch_size=8))
+    snapshots = {}
+
+    def on_checkpoint(trainer):
+        snapshots[trainer.training_steps] = copy.deepcopy(trainer.train_state)
+        master = trainer.train_state.net.state_dict()
+        for name, value in trainer.play_net.state_dict().items():
+            assert torch.equal(value, master[name].to(value.dtype)), name
+
+    before = tree_kernels.select_leaf_batched.launches
+    trainer = pipeline.train(cfg, device=cuda_device, on_checkpoint=on_checkpoint)
+    assert tree_kernels.select_leaf_batched.launches > before
+    assert trainer.replay.size == trainer.replay.num_samples_added > 0
+    for step_count, snap in snapshots.items():
+        fresh = learner.create_train_state(
+            build_network(cfg.env, cfg.network, device=cuda_device, dtype="float32"),
+            cfg.train)
+        restored = ckpt_lib.restore_checkpoint(
+            str(tmp_path / "ckpt" / f"training_steps_{step_count}"), fresh)
+        for name, value in snap.net.state_dict().items():
+            assert torch.equal(value, restored.net.state_dict()[name]), name
+        assert restored.scheduler.state_dict() == snap.scheduler.state_dict()

@@ -73,8 +73,10 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
     from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.cli import train as cli_train
     from alpha_zero_tpu_torch.models.resnet import build_network
-    from alpha_zero_tpu_torch.training import selfplay
+    from alpha_zero_tpu_torch.training import pipeline, selfplay
+    from alpha_zero_tpu_torch.training.checkpoint import train_state_from_flax
     from alpha_zero_tpu_torch.training.pipeline import build_engine
 
     cfg = config_lib.go9()
@@ -88,3 +90,11 @@ def test_entry_points_default_to_cuda():
         build_network(cfg.env, cfg.network)
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.init_batch(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine(config_lib.gomoku13().env).init_batch(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.Trainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_train.main(["--config", "go9", "--no-eval"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_state_from_flax({}, cfg.env, cfg.network, cfg.train)

@@ -1,9 +1,11 @@
-"""Where one go9 self-play move of the PyTorch port spends its time.
+"""Where one self-play move of the PyTorch port spends its time.
 
-    python3 tools/profile_torch_selfplay.py [--moves 3] [--rate-only]
+    python3 tools/profile_torch_selfplay.py [--config go9] [--moves 3] [--rate-only]
 
-Runs the port's go9 self-play step (B=1024 games, bf16 net with random
-weights, 200 simulations, reuse, max_new_sims=120) on the GPU: one warm-up move,
+Runs the port's self-play step for a named config (default go9: B=1024
+games, bf16 net with random weights, 200 simulations, reuse,
+max_new_sims=120; gomoku13: 380 simulations, max_new_sims=240) on the
+GPU: one warm-up move,
 ``--moves`` timed moves without the profiler (their mean gives env-steps/s),
 then one move under ``torch.profiler`` (skipped with ``--rate-only``).
 The search's phases are wrapped in ``record_function`` ranges by this script
@@ -33,7 +35,6 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from alpha_zero_tpu_torch import config as config_lib  # noqa: E402
-from alpha_zero_tpu_torch.envs.go import GoEngine  # noqa: E402
 from alpha_zero_tpu_torch.models.resnet import build_network  # noqa: E402
 from alpha_zero_tpu_torch.ops import tree_kernels  # noqa: E402
 from alpha_zero_tpu_torch.search import mcts  # noqa: E402
@@ -56,11 +57,11 @@ def _ranged(name, fn):
     return wrapper
 
 
-def _instrument() -> None:
+def _instrument(engine_cls) -> None:
     """Wraps each phase of the search in a named profiler range."""
     tree_kernels.select_leaf_batched = _ranged("select", tree_kernels.select_leaf_batched)
     mcts._gather_state_rows = _ranged("gather_state", mcts._gather_state_rows)
-    GoEngine.step_batch = _ranged("engine_step", GoEngine.step_batch)
+    engine_cls.step_batch = _ranged("engine_step", engine_cls.step_batch)
     mcts._materialize_scatter = _ranged("materialize", mcts._materialize_scatter)
     mcts._leaf_history_batch = _ranged("history", mcts._leaf_history_batch)
     mcts._expand_backup_scatter = _ranged("expand_backup", mcts._expand_backup_scatter)
@@ -87,6 +88,7 @@ def _launches_per_phase(events) -> dict:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--config", default="go9", choices=sorted(config_lib.CONFIGS))
     p.add_argument("--moves", type=int, default=3, help="timed moves without the profiler")
     p.add_argument("--rate-only", action="store_true", help="no profiled move")
     args = p.parse_args(argv)
@@ -94,10 +96,10 @@ def main(argv=None) -> None:
         raise SystemExit("profile_torch_selfplay: CUDA is not available")
     card = card_line()
 
-    _instrument()
     dev = torch.device("cuda")
-    cfg = config_lib.go9()
+    cfg = config_lib.get_config(args.config)
     engine = build_engine(cfg.env)
+    _instrument(type(engine))
     net = build_network(cfg.env, cfg.network, device=dev, seed=0)
     step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -116,7 +118,7 @@ def main(argv=None) -> None:
     move()  # warm-up
     times = [move() for _ in range(args.moves)]
     plain_s = sum(times) / len(times)
-    print(f"card: {card}; batch {BATCH}; moves without profiler "
+    print(f"card: {card}; {args.config}, batch {BATCH}; moves without profiler "
           + ", ".join(f"{x:.3f}" for x in times) + f" s: mean {plain_s:.3f} s, "
           f"{BATCH / plain_s:.1f} env-steps/s", flush=True)
     if args.rate_only:
