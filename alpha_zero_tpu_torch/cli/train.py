@@ -2,11 +2,10 @@
 
 The port of ``alpha_zero_tpu.cli.train``: pick a named config (go9 /
 go19_jumbo / gomoku13 / gomoku9) and override any field with
-``--set a.b.c=value``. Runs on ``--device`` (default ``cuda``).
-
-The per-checkpoint evaluator is not ported yet, so ``--no-eval`` is
-required: the run refuses to start without it rather than skip the
-evaluator silently.
+``--set a.b.c=value``. Runs on ``--device`` (default ``cuda``). The
+per-checkpoint evaluator runs unless ``--no-eval``: latest-vs-previous games
+and Elo per checkpoint, plus pro-game metrics when ``run.eval_games_dir``
+is set.
 """
 
 from __future__ import annotations
@@ -24,19 +23,18 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_config_args(parser)
     parser.add_argument("--no-eval", action="store_true",
-                        help="train without the per-checkpoint evaluator "
-                             "(required: the evaluator is not ported yet)")
+                        help="skip the per-checkpoint evaluator")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
     args = parser.parse_args(argv)
-    if not args.no_eval:
-        parser.error("the per-checkpoint evaluator is not ported to "
-                     "alpha_zero_tpu_torch yet; pass --no-eval to train without it")
 
     cfg = resolve_config(args.config, args.set)
     logger = create_logger(cfg.run.log_level)
     logger.info("config: %s", json.dumps(dataclasses.asdict(cfg), default=str, indent=1))
-    pipeline.Trainer(cfg, device=args.device).run()
+    trainer = pipeline.Trainer(cfg, device=args.device)
+    if not args.no_eval:
+        trainer.enable_evaluator()
+    trainer.run()
 
 
 if __name__ == "__main__":

@@ -49,6 +49,12 @@ def _col(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x.reshape((-1,) + (1,) * (ndim - 1))
 
 
+def _one_action(action, state: GameState) -> torch.Tensor:
+    """``action`` as the int32[1] action batch of a one-game ``state``."""
+    return torch.as_tensor(action, dtype=torch.int32,
+                           device=state.board.device).reshape(1)
+
+
 class GoEngine:
     """Static-config namespace of functions over batched :class:`GameState`."""
 
@@ -96,6 +102,11 @@ class GoEngine:
             group_libs=full((sent + 1,), 0.0, torch.float32),
             legal=full((self.num_actions,), 1.0, torch.float32),
         )
+
+    def init(self, device="cuda") -> GameState:
+        """One fresh game: a batch of 1 (the single-game entry of the host
+        env, the eval game and the dataset builder)."""
+        return self.init_batch(1, device=device)
 
     # -----------------------------------------------------------------------
     # Group analysis
@@ -224,10 +235,14 @@ class GoEngine:
         white = (board == WHITE).reshape(b, -1).sum(1) + terr_white
         return black.float(), white.float()
 
+    def area_score(self, board: torch.Tensor) -> torch.Tensor:
+        """Black-perspective Tromp-Taylor area score before komi, f32[B]."""
+        black, white = self.area_counts(board)
+        return black - white
+
     def score(self, board: torch.Tensor) -> torch.Tensor:
         """Black-perspective area score with komi, f32[B]."""
-        black, white = self.area_counts(board)
-        return black - white - self.komi
+        return self.area_score(board) - self.komi
 
     # -----------------------------------------------------------------------
     # Step
@@ -361,6 +376,11 @@ class GoEngine:
     def step_batch(self, states: GameState, actions: torch.Tensor) -> GameState:
         """Batched step with terminal scoring — the hot-path entry point."""
         return self._finalize_scores(states.done, self.step_core(states, actions))
+
+    def step(self, state: GameState, action) -> GameState:
+        """One game (a batch of 1) steps with ``action`` (an int or a
+        one-element tensor), terminal scoring included."""
+        return self.step_batch(state, _one_action(action, state))
 
     # -----------------------------------------------------------------------
     # Observation

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from alpha_zero_tpu_torch.envs.go import GoEngine, _col
+from alpha_zero_tpu_torch.envs.go import GoEngine, _col, _one_action
 from alpha_zero_tpu_torch.envs.types import BLACK, EMPTY, GameState
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
@@ -78,6 +78,10 @@ class GomokuEngine:
             legal=full((self.num_actions,), 1.0, torch.float32),
         )
 
+    def init(self, device="cuda") -> GameState:
+        """One fresh game: a batch of 1."""
+        return self.init_batch(1, device=device)
+
     # -----------------------------------------------------------------------
     def analyze(self, state: GameState) -> GameState:
         """Recomputes the cached legal mask (for hand-built states)."""
@@ -128,6 +132,10 @@ class GomokuEngine:
         )
         return state.map2(new_state, lambda old, new: torch.where(
             _col(state.done, new.ndim), old, new))
+
+    def step(self, state: GameState, action) -> GameState:
+        """One game (a batch of 1) steps with ``action``."""
+        return self.step_batch(state, _one_action(action, state))
 
     # -----------------------------------------------------------------------
     def with_num_stack(self, num_stack: int) -> "GomokuEngine":

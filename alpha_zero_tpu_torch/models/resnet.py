@@ -8,8 +8,11 @@ skip) -> policy head (1x1 conv to 2ch -> BN -> ReLU -> FC) and value head
 The public call takes the JAX package's layout — NHWC int8 planes — and
 permutes to NCHW inside. The heads flatten in HWC order, as the Flax net
 does, so Flax Dense kernels load without permuting (``params_from_flax``).
-Inference in bf16 mirrors Flax ``dtype=bfloat16``: the module's parameters
-are bf16, logits are cast to f32 and tanh of the value is taken in f32.
+Inference in bf16 mirrors Flax ``dtype=bfloat16``: the convolutions and
+dense layers hold bf16 parameters, every BatchNorm keeps its scale, bias
+and running statistics in float32 and normalizes in float32
+(``to_inference_dtype``), logits are cast to f32 and tanh of the value is
+taken in f32.
 Training keeps float32 parameters and computes in the config's dtype under
 ``torch.autocast`` (``training/learner.py``); in train mode the BatchNorm
 layers are Flax's (``BatchNorm``).
@@ -44,8 +47,13 @@ class BatchNorm(nn.BatchNorm2d):
     the batch moments in float32 (float64 for a float64 input), the
     variance biased (E[x^2] - E[x]^2, clipped at 0), the input normalized
     with them, and the running statistics updated with the same biased
-    variance (torch's own forward updates them with the unbiased one). Eval
-    mode is torch's."""
+    variance (torch's own forward updates them with the unbiased one).
+
+    Eval mode is torch's ``F.batch_norm``, which takes a bf16 input with
+    float32 weights and statistics, normalizes in float32 and returns bf16
+    on the CPU and the card alike: Flax's ``BatchNorm(dtype=bfloat16)``,
+    which casts only its output (flax ``linen/normalization.py:_normalize``),
+    in one launch."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -140,11 +148,27 @@ class AlphaZeroNet(nn.Module):
         return NetworkOutputs(pi_logits=pi_logits.float(), value=value)
 
 
+def to_inference_dtype(net: nn.Module, dtype) -> nn.Module:
+    """Casts ``net`` in place to ``dtype`` (a ``torch.dtype`` or its name)
+    except its BatchNorm modules, whose weights and buffers stay float32;
+    returns ``net``. Every net the port runs in bf16 is made by this. BN's
+    tensors are never rounded through ``dtype``: they keep every float32
+    bit of the master weights."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    for module in net.modules():
+        if isinstance(module, nn.BatchNorm2d):
+            module.float()
+            continue
+        for param in module.parameters(recurse=False):
+            param.data = param.data.to(dtype)
+    return net
+
+
 def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0,
                   dtype: Optional[str] = None) -> AlphaZeroNet:
     """The net for an (EnvConfig, NetworkConfig) pair, with random weights
     drawn from ``seed``, in eval mode, with parameters in ``dtype`` (default:
-    the config's inference dtype)."""
+    the config's inference dtype; BatchNorm stays float32)."""
     dev = resolve_device(device)
     net = AlphaZeroNet(
         num_actions=env_cfg.num_actions,
@@ -156,8 +180,7 @@ def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0,
         gomoku=net_cfg.gomoku,
     )
     net.reset_parameters(torch.Generator().manual_seed(seed))
-    dtype = getattr(torch, dtype or net_cfg.inference_dtype)
-    return net.to(device=dev, dtype=dtype).eval()
+    return to_inference_dtype(net.to(dev), dtype or net_cfg.inference_dtype).eval()
 
 
 def _conv_weight(kernel) -> torch.Tensor:

@@ -21,9 +21,13 @@ The learner keeps float32 master weights; self-play runs a copy in the
 config's inference dtype (bf16 at go9), refreshed from the master weights
 after every train generation.
 
-Not ported yet: the evaluator (synchronous and async), ``Trainer.profile``,
-and the multi-device and multi-host paths (``parallel.dp * parallel.mdl >
-1`` or a coordinator address raise).
+The evaluator (``enable_evaluator``) plays each new checkpoint against the
+previous one after its generation and writes ``evaluation.csv`` and an eval
+SGF, inline or (``run.eval_async``) on a worker thread that gets a copy of
+the weights; a failed evaluation is logged and skips its row.
+
+Not ported yet: ``Trainer.profile``, and the multi-device and multi-host
+paths (``parallel.dp * parallel.mdl > 1`` or a coordinator address raise).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from __future__ import annotations
 import copy
 import csv
 import os
+import queue
+import threading
 from collections import deque, namedtuple
 from typing import Callable, Optional
 
@@ -40,7 +46,7 @@ import torch
 from alpha_zero_tpu_torch.config import AlphaZeroConfig
 from alpha_zero_tpu_torch.envs.go import GoEngine
 from alpha_zero_tpu_torch.envs.gomoku import GomokuEngine
-from alpha_zero_tpu_torch.models.resnet import build_network
+from alpha_zero_tpu_torch.models.resnet import build_network, to_inference_dtype
 from alpha_zero_tpu_torch.ops.symmetry import random_transform_id
 from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
 from alpha_zero_tpu_torch.training import learner as learner_lib
@@ -167,9 +173,10 @@ class Trainer:
         self.train_state = learner_lib.create_train_state(net, cfg.train)
         self.train_step = learner_lib.make_train_step(
             cfg.network.inference_dtype, argument_data=cfg.train.argument_data)
-        # The self-play net: a copy in the inference dtype (see _refresh_play_net).
-        self.play_net = copy.deepcopy(net).to(
-            getattr(torch, cfg.network.inference_dtype)).eval()
+        # The self-play net: a copy in the inference dtype, BatchNorm in
+        # float32 (see _refresh_play_net).
+        self.play_net = to_inference_dtype(
+            copy.deepcopy(net), cfg.network.inference_dtype).eval()
         self.selfplay_step = selfplay_lib.make_selfplay_step(
             self.engine, self.play_net, cfg.search, cfg.resign,
             deterministic=False, root_noise=True, device=self.device,
@@ -199,6 +206,11 @@ class Trainer:
         self.actor_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "actor0.csv"))
         self.train_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "training.csv"),
                                       buffer_size=1)
+        self.eval_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "evaluation.csv"),
+                                     buffer_size=1)
+        self.evaluator = None  # built by enable_evaluator()
+        self._eval_failures = 0  # consecutive failed evaluations
+        self._eval_queue: Optional[queue.Queue] = None
         self._replay_path = os.path.join(cfg.run.ckpt_dir, "replay_state.npz")
         self._last_replay_save = 0
         self.timer = Timer()
@@ -263,8 +275,8 @@ class Trainer:
             return None
 
     def _refresh_play_net(self) -> None:
-        """Copies the master weights into the self-play net, cast to its
-        dtype."""
+        """Copies the master weights into the self-play net, each tensor cast
+        to its own dtype (BatchNorm's stay float32)."""
         self.play_net.load_state_dict(self.train_state.net.state_dict())
 
     # ------------------------------------------------------------------
@@ -439,9 +451,135 @@ class Trainer:
             return None
 
     # ------------------------------------------------------------------
+    def enable_evaluator(self) -> None:
+        """Builds the evaluator: latest-vs-previous matches and Elo, plus the
+        pro-game metrics when ``run.eval_games_dir`` exists (its dataset
+        cached as an npz in ``run.ckpt_dir``). A resumed run continues the
+        Elo curve from the last ``evaluation.csv`` row and plays its first
+        new checkpoint against the resumed weights."""
+        from alpha_zero_tpu_torch.eval.dataset import build_eval_dataset
+        from alpha_zero_tpu_torch.eval.evaluator import Evaluator
+
+        cfg = self.cfg
+        dataset = None
+        if cfg.run.eval_games_dir and os.path.exists(cfg.run.eval_games_dir):
+            n = cfg.env.board_size
+            dataset = build_eval_dataset(
+                cfg.run.eval_games_dir, n, cfg.env.num_stack, logger=self.logger,
+                cache_path=os.path.join(cfg.run.ckpt_dir, f"eval_dataset_{n}x{n}.npz"),
+                device=self.device)
+        self.evaluator = Evaluator(
+            self.engine, self.train_state.net, cfg.search,
+            inference_dtype=cfg.network.inference_dtype,
+            default_rating=cfg.run.default_rating, dataset=dataset,
+            eval_games=cfg.run.eval_games, device=self.device)
+        if self.training_steps > 0:
+            rating = self._last_recorded_rating()
+            self.evaluator.restore_continuity(
+                rating if rating is not None else cfg.run.default_rating,
+                prev_weights=self.train_state.net.state_dict())
+            if rating is not None:
+                self.logger.info(
+                    f"Evaluator resumed: Elo {rating:.2f} from the last "
+                    f"evaluation.csv row, previous model = the resumed checkpoint")
+
+    def _last_recorded_rating(self) -> Optional[float]:
+        """The last black (that is, promoted) Elo rating in evaluation.csv."""
+        path = os.path.join(self.cfg.run.logs_dir, "evaluation.csv")
+        try:
+            with open(path) as f:
+                rows = list(csv.DictReader(f))
+            if not rows:
+                return None
+            return float(rows[-1]["black_elo_rating"])
+        except (OSError, KeyError, ValueError):
+            return None
+
+    def start_async_evaluator(self) -> None:
+        """Runs evaluations on a worker thread, so the next generation's
+        self-play starts right after training. One worker keeps the
+        checkpoints in order (Elo continuity); its work shares the device's
+        stream with self-play. A crash loses the queued evaluations' rows."""
+        if self._eval_queue is not None:
+            return
+        self._eval_queue = queue.Queue()
+
+        def worker():
+            while True:
+                item = self._eval_queue.get()
+                if item is None:
+                    self._eval_queue.task_done()
+                    return
+                weights, steps = item
+                try:
+                    self._evaluate_and_record(weights, steps)
+                except Exception:  # noqa: BLE001 - keep the worker alive
+                    self.logger.exception(f"async evaluation for step {steps} failed")
+                finally:
+                    self._eval_queue.task_done()
+
+        self._eval_thread = threading.Thread(target=worker, name="evaluator", daemon=True)
+        self._eval_thread.start()
+
+    def finish_async_evaluator(self) -> None:
+        if self._eval_queue is None:
+            return
+        self._eval_queue.join()
+        self._eval_queue.put(None)
+        self._eval_thread.join()
+        self._eval_queue = None
+
+    def run_evaluation(self) -> Optional[dict]:
+        """Evaluates the current weights; writes evaluation.csv and the eval
+        SGF. In async mode the worker gets a copy of the weights (the next
+        train step updates the master weights in place) and this returns
+        None."""
+        if self.evaluator is None:
+            return None
+        weights = self.train_state.net.state_dict()
+        if self._eval_queue is not None:
+            self._eval_queue.put(({k: v.detach().clone() for k, v in weights.items()},
+                                  self.training_steps))
+            return None
+        return self._evaluate_and_record(weights, self.training_steps)
+
+    def _evaluate_and_record(self, weights, training_steps) -> Optional[dict]:
+        try:
+            stats = self.evaluator.evaluate(weights, seed=training_steps)
+        except Exception as e:  # noqa: BLE001
+            # A failed evaluation skips this checkpoint's row and training
+            # goes on; repeated failures are escalated to errors.
+            self._eval_failures += 1
+            log = self.logger.error if self._eval_failures >= 3 else self.logger.warning
+            log(f"evaluation failed for step {training_steps} "
+                f"({self._eval_failures} consecutive): {e}", exc_info=True)
+            return None
+        self._eval_failures = 0
+        moves = stats.pop("_moves", [])
+        sgf_result = stats.pop("_sgf_result", stats.get("game_result", ""))
+        self.eval_writer.write({"datetime": get_time_stamp(),
+                                "training_steps": training_steps, **stats})
+        if self.cfg.run.save_sgf_dir and moves:
+            content = sgf_lib.make_sgf(
+                board_size=self.cfg.env.board_size,
+                move_history=moves,
+                result_string=sgf_result,
+                ruleset="Chinese" if self.cfg.env.game == "go" else "",
+                komi=self.cfg.env.komi if self.cfg.env.game == "go" else "",
+                date=get_time_stamp(),
+            )
+            path = os.path.join(self.cfg.run.save_sgf_dir,
+                                f"eval_training_steps_{training_steps}.sgf")
+            with open(path, "w") as f:
+                f.write(content)
+        return stats
+
+    # ------------------------------------------------------------------
     def run(self, on_checkpoint: Optional[Callable[["Trainer"], None]] = None) -> None:
         """Full training loop to ``max_training_steps``."""
         cfg = self.cfg
+        if cfg.run.eval_async and self.evaluator is not None:
+            self.start_async_evaluator()
         # The first generation is the min_games warm-up, which counts the
         # replay's existing games. A run resumed from a checkpoint is past
         # warm-up: it collects games_per_ckpt new games before training.
@@ -461,10 +599,13 @@ class Trainer:
             self.selfplay_until(max(0, target - already))
             first = False
             self.train_generation()
+            self.run_evaluation()
             if on_checkpoint is not None:
                 on_checkpoint(self)
+        self.finish_async_evaluator()
         self.actor_writer.close()
         self.train_writer.close()
+        self.eval_writer.close()
 
 
 def train(cfg: AlphaZeroConfig, device="cuda", **kwargs) -> Trainer:

@@ -10,7 +10,8 @@ card against its CPU path on small inputs, then drives the port's paths:
   random weights, 200 simulations, subtree reuse, max_new_sims=120) at
   B=1024 games through ``init_selfplay_state`` and ``make_selfplay_step``:
   every select through the select kernel K1 (120 launches a move), every
-  tree write through the tree-row writer K2 (2 a simulation, 240 a move).
+  tree write through the tree-row writer K2 (2 a simulation, 240 a move);
+  one more move under ``torch.profiler`` counts all its device kernels.
 - [6] K2 and K3 bit-equal to their plain versions on the searched go9
   tree's materialize and expand sets, go19-shaped int16 rows and 1-byte
   rows, then the row-scatter probe
@@ -26,9 +27,23 @@ card against its CPU path on small inputs, then drives the port's paths:
   with run and checkpoint directories under ``build/``: launches per
   move as in [5], replay against the harvested games, finite losses, both
   checkpoints restored bit-equal, the bf16 self-play net equal to the
-  master weights after each generation, a Trainer resumed from
-  ``training_steps_10`` taking the original's next step bit for bit; ms
-  per train step, samples/s, seconds per generation, peak memory.
+  master weights after each generation (BatchNorm float32, every other
+  tensor bf16), a Trainer resumed from ``training_steps_10`` taking the
+  original's next step bit for bit; ms per train step, samples/s, seconds
+  per generation, peak memory. The evaluator runs after each generation
+  (``run.eval_games=2``, pro metrics over ``logs/go/9x9_matched/sgf``):
+  one ``evaluation.csv`` row per checkpoint with the JAX package's header,
+  Elo columns equal to an ``EloRating`` replay of the recorded games,
+  finite pro metrics, 199 K1 and 398 K2 launches in every evaluation ply
+  (fresh trees), and its pro-game dataset built on the card bit-equal to
+  the CPU's.
+- [9] matches: ``cli.match.main`` in-process, ``training_steps_10`` (black)
+  against ``training_steps_20`` at go9 full width, 64 games in lockstep
+  (``env.max_steps=24``), then one deterministic ``eval_games=1`` game
+  between them: every move legal on a replay through the host ``GoEnv``,
+  the results equal to ``log.csv``, 199 K1 and 398 K2 launches a ply, and
+  K1 and K2 bit-equal to their plain versions on searched trees at B=1
+  and B=2, timed at B=1 and B=64.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -41,7 +56,9 @@ the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
 kernels' launch counts are set to 0 before each of [5], [7] and [8] and
-read after it; ``launches`` sums them, ``launches_by_path`` splits them.
+read after it; ``launches`` sums them, ``launches_by_path`` splits them
+(``go9_training`` is [8]'s self-play, ``go9_eval`` its evaluation plies
+and [9]'s eval game, ``go9_match`` the ``cli.match`` run).
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -55,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -64,16 +82,24 @@ BATCH = 1024
 TIMED_MOVES = 3
 GOMOKU_TIMED_MOVES = 2
 TRAIN_STEPS = 20
+MATCH_GAMES = 64
+EVAL_HEADER = ["datetime", "training_steps", "game_length", "game_result", "num_passes",
+               "black_elo_rating", "white_elo_rating", "eval_games", "latest_win_rate",
+               "value_mse_error", "policy_entropy", "policy_top_1_accuracy",
+               "policy_top_3_accuracy", "policy_top_5_accuracy"]
 
 
-def play_moves(label, cfg, engine, net, moves, dev):
+def play_moves(label, cfg, engine, net, moves, dev, profiled=False):
     """Self-play ``moves`` moves of ``BATCH`` games of ``cfg`` through
     ``init_selfplay_state``/``make_selfplay_step``, each checked: exactly
     ``max_new_sims`` K1 and twice as many K2 launches, every move legal and
     on an empty point, ``search_pi`` rows summing to 1, ``root_visits`` within
-    the budget, finite values. Returns the env-steps/s of all moves but the
-    first (a warm-up) and the self-play state after the last."""
+    the budget, finite values. With ``profiled``, one more move runs under
+    ``torch.profiler``. Returns the env-steps/s of the timed moves (all but
+    the first, a warm-up, and the profiled one), the self-play state after
+    the last move and the profiled move's device kernel launches (None)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
     from alpha_zero_tpu_torch.training import selfplay
@@ -88,13 +114,21 @@ def play_moves(label, cfg, engine, net, moves, dev):
     loop_len = cfg.search.max_new_sims
     torch.cuda.synchronize()
     elapsed = 0.0
-    for move_idx in range(moves):
+    kernels = None
+    for move_idx in range(moves + int(profiled)):
         before, writes_before = select.launches, writer.launches
         legal, board = sp.games.legal, sp.games.board.flatten(1)
         t0 = time.time()
-        sp, out = step(sp, gen, -1.0)
-        torch.cuda.synchronize()
-        if move_idx > 0:
+        if move_idx == moves:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                sp, out = step(sp, gen, -1.0)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+        else:
+            sp, out = step(sp, gen, -1.0)
+            torch.cuda.synchronize()
+        if 0 < move_idx < moves:
             elapsed += time.time() - t0
         where = f"{label} move {move_idx}"
         if select.launches - before != loop_len:
@@ -119,7 +153,7 @@ def play_moves(label, cfg, engine, net, moves, dev):
             raise SystemExit(f"{where}: root_visits above the budget")
         if not all(torch.isfinite(x).all() for x in (out.root_q, out.best_child_q)):
             raise SystemExit(f"{where}: non-finite values")
-    return BATCH * (moves - 1) / elapsed, sp
+    return BATCH * (moves - 1) / elapsed, sp, kernels
 
 
 def check_engine_on_card(label, engine, games, dev):
@@ -147,6 +181,35 @@ def check_engine_on_card(label, engine, games, dev):
           f"({i + 1} moves), every field", flush=True)
 
 
+def counting(fn, plies):
+    """``fn`` wrapped to append each call's (K1 launches, K2 launches,
+    seconds) to ``plies``."""
+    import torch
+
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+
+    def counted(*args, **kwargs):
+        s0, w0 = select.launches, writer.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        plies.append((select.launches - s0, writer.launches - w0, time.perf_counter() - t0))
+        return out
+    return counted
+
+
+def check_plies(label, plies, sims):
+    """Every ply a fresh-tree search: ``sims - 1`` K1 launches and twice as
+    many K2 launches."""
+    counts = sorted({(k1, k2) for k1, k2, _ in plies})
+    if not plies or counts != [(sims - 1, 2 * (sims - 1))]:
+        raise SystemExit(f"{label}: launches per ply {counts}, expected "
+                         f"({sims - 1}, {2 * (sims - 1)})")
+
+
 def train_path(card, dev) -> dict:
     """[8]: ``cli.train.main`` in-process at go9 full width (10 x 128, bf16
     compute, float32 master weights, 1024 self-play games, train batch
@@ -154,11 +217,12 @@ def train_path(card, dev) -> dict:
     of 10 steps. Checks the launches of every self-play move, the replay
     against the harvested games, finite losses, both checkpoints restored
     bit-equal, the self-play net after each generation, and a resumed
-    Trainer's next step bit-equal to the original's; times the train step."""
+    Trainer's next step bit-equal to the original's; times the train step.
+    The evaluator runs after each generation and is checked (see the module
+    docstring). Leaves the checkpoints for [9]."""
     import copy
     import csv
     import math
-    import shutil
 
     import numpy as np
     import torch
@@ -166,28 +230,38 @@ def train_path(card, dev) -> dict:
 
     from alpha_zero_tpu_torch.cli import train as cli_train
     from alpha_zero_tpu_torch.cli.common import resolve_config
+    from alpha_zero_tpu_torch.eval import evaluator as evaluator_lib
+    from alpha_zero_tpu_torch.eval import match as match_lib
+    from alpha_zero_tpu_torch.eval.dataset import build_eval_dataset
+    from alpha_zero_tpu_torch.eval.elo import EloRating
     from alpha_zero_tpu_torch.models.resnet import build_network
     from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
     from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
     from alpha_zero_tpu_torch.training import learner, pipeline, selfplay
+    from alpha_zero_tpu_torch.utils import sgf as sgf_lib
     from alpha_zero_tpu_torch.utils.device import BF16_OPS_PER_S
 
     run_dir = os.path.join(HERE, "build", "chip_smoke_train")
     shutil.rmtree(run_dir, ignore_errors=True)
     ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
+    sgf_dir = os.path.join(run_dir, "sgf")
+    games_dir = os.path.join(HERE, "logs", "go", "9x9_matched", "sgf")
     sets = [f"parallel.selfplay_batch_size={BATCH}", f"train.batch_size={BATCH}",
             "env.max_steps=24", f"train.min_games={BATCH}", f"train.games_per_ckpt={BATCH}",
             "train.ckpt_interval=10", f"train.max_training_steps={TRAIN_STEPS}",
-            f"run.ckpt_dir={ckpt_dir}", f"run.logs_dir={logs_dir}"]
-    argv = ["--config", "go9", "--no-eval", "--device", str(dev)] + [
+            f"run.ckpt_dir={ckpt_dir}", f"run.logs_dir={logs_dir}", "run.eval_games=2",
+            f"run.eval_games_dir={games_dir}", f"run.save_sgf_dir={sgf_dir}",
+            "run.save_sgf_interval=0"]
+    argv = ["--config", "go9", "--device", str(dev)] + [
         x for v in sets for x in ("--set", v)]
     cfg = resolve_config("go9", sets)
 
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
     seen = {"moves": [], "selfplay_s": [], "generation_s": [], "checkpoint_s": [],
-            "snapshots": {}, "trainer": None}
+            "eval_s": [], "eval_plies": [], "snapshots": {}, "trainer": None}
     make_step, selfplay_until = selfplay.make_selfplay_step, pipeline.Trainer.selfplay_until
     train_generation, save = pipeline.Trainer.train_generation, ckpt_lib.save_checkpoint
+    make_match, evaluate = match_lib.make_match_move_fn, evaluator_lib.Evaluator.evaluate
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
@@ -212,7 +286,12 @@ def train_path(card, dev) -> dict:
     def generation(self):
         timed(train_generation, "generation_s")(self)
         master = self.train_state.net.state_dict()
+        bn = {n for n, m in self.play_net.named_modules()
+              if isinstance(m, torch.nn.BatchNorm2d)}
         for name, value in self.play_net.state_dict().items():
+            want = (torch.float32 if name.rsplit(".", 1)[0] in bn else torch.bfloat16)
+            if value.is_floating_point() and value.dtype != want:
+                raise SystemExit(f"[8] self-play net's {name} is {value.dtype}, not {want}")
             if not torch.equal(value, master[name].to(value.dtype)):
                 raise SystemExit(f"[8] self-play net != master weights cast to "
                                  f"{value.dtype} after step {self.training_steps}: {name}")
@@ -224,6 +303,9 @@ def train_path(card, dev) -> dict:
     pipeline.Trainer.selfplay_until = timed(selfplay_until, "selfplay_s")
     pipeline.Trainer.train_generation = generation
     ckpt_lib.save_checkpoint = timed(save, "checkpoint_s")
+    match_lib.make_match_move_fn = lambda *a, **k: counting(make_match(*a, **k),
+                                                            seen["eval_plies"])
+    evaluator_lib.Evaluator.evaluate = timed(evaluate, "eval_s")
     t0 = time.time()
     try:
         cli_train.main(argv)
@@ -232,6 +314,8 @@ def train_path(card, dev) -> dict:
         pipeline.Trainer.selfplay_until = selfplay_until
         pipeline.Trainer.train_generation = train_generation
         ckpt_lib.save_checkpoint = save
+        match_lib.make_match_move_fn = make_match
+        evaluator_lib.Evaluator.evaluate = evaluate
     wall = time.time() - t0
     trainer = seen["trainer"]
     loop_len = cfg.search.max_new_sims
@@ -240,6 +324,48 @@ def train_path(card, dev) -> dict:
     if not seen["moves"] or set(seen["moves"]) != {(loop_len, 2 * loop_len)}:
         raise SystemExit(f"[8] launches per self-play move {sorted(set(seen['moves']))}, "
                          f"expected ({loop_len}, {2 * loop_len})")
+
+    # The evaluator: a row per checkpoint, Elo, pro metrics, launches.
+    check_plies("[8] evaluation", seen["eval_plies"], cfg.search.num_simulations)
+    with open(os.path.join(logs_dir, "evaluation.csv")) as f:
+        header = next(csv.reader(f))
+        f.seek(0)
+        eval_rows = list(csv.DictReader(f))
+    if header != EVAL_HEADER:
+        raise SystemExit(f"[8] evaluation.csv header {header}")
+    if [int(r["training_steps"]) for r in eval_rows] != [10, TRAIN_STEPS]:
+        raise SystemExit(f"[8] evaluation.csv rows for steps "
+                         f"{[r['training_steps'] for r in eval_rows]}, expected 10 and 20")
+    # Elo replay: game 0 (the latest net black) from its SGF, the other
+    # game (the latest net white) from the row's win counts.
+    black_elo, white_elo = EloRating(0.0), EloRating(0.0)
+    for row in eval_rows:
+        with open(os.path.join(sgf_dir, f"eval_training_steps_{row['training_steps']}.sgf")) as f:
+            first = sgf_lib.parse_game_result(sgf_lib.parse_sgf(f.read()).result)
+        wins = [int(x) for x in row["game_result"].split()[1].split("-")] + [0]
+        latest, prev = wins[0] - (first == 1), wins[1] - (first == -1)
+        for latest_won in [first == 1] * (first != 0) + [True] * latest + [False] * prev:
+            a, b = (black_elo, white_elo) if latest_won else (white_elo, black_elo)
+            a.update_rating(b.rating, 1)
+            b.update_rating(a.rating, 0)
+        if (float(row["black_elo_rating"]), float(row["white_elo_rating"])) != (
+                black_elo.rating, white_elo.rating):
+            raise SystemExit(f"[8] Elo columns {row['black_elo_rating']}, "
+                             f"{row['white_elo_rating']} != replay {black_elo.rating}, "
+                             f"{white_elo.rating}")
+        white_elo = EloRating(black_elo.rating)
+        pro = {k: float(row[k]) for k in EVAL_HEADER[9:]}
+        if not (all(math.isfinite(v) and v >= 0 for v in pro.values())
+                and all(pro[k] <= 1 for k in EVAL_HEADER[11:])):
+            raise SystemExit(f"[8] pro metrics out of range: {pro}")
+    dataset = trainer.evaluator.dataset
+    on_cpu = build_eval_dataset(games_dir, 9, cfg.env.num_stack, device="cpu")
+    if not (np.array_equal(dataset.states, on_cpu.states)
+            and np.array_equal(dataset.target_pi, on_cpu.target_pi)
+            and np.array_equal(dataset.target_v, on_cpu.target_v)
+            and dataset.num_games == on_cpu.num_games
+            and dataset.mismatch_stats == on_cpu.mismatch_stats):
+        raise SystemExit("[8] the eval dataset built on the card != the CPU's")
 
     # Replay against the harvested games; its contents.
     replay = trainer.replay
@@ -322,7 +448,6 @@ def train_path(card, dev) -> dict:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     peak = torch.cuda.max_memory_allocated() / 2**30
-    shutil.rmtree(ckpt_dir)  # 24 MB a checkpoint; the CSVs stay
 
     gens = [{"selfplay_s": sp_s, "train_s": gen_s - ck_s, "checkpoint_s": ck_s}
             for sp_s, gen_s, ck_s in zip(seen["selfplay_s"], seen["generation_s"],
@@ -333,7 +458,11 @@ def train_path(card, dev) -> dict:
            "train_step_ms": step_ms, "train_samples_per_s": BATCH * 1e3 / step_ms,
            "train_step_flops": step_flops, "train_step_bound_ms": bound_ms,
            "generations": gens, "wall_s": wall, "peak_memory_gib": peak,
-           "losses": losses}
+           "losses": losses, "eval_s": seen["eval_s"],
+           "eval_plies": len(seen["eval_plies"]),
+           "eval_ply_s": sum(t for _, _, t in seen["eval_plies"]) / len(seen["eval_plies"]),
+           "eval_launches": [sum(x[i] for x in seen["eval_plies"]) for i in (0, 1)],
+           "eval_dataset_positions": len(dataset), "evaluation_rows": eval_rows}
     print(f"[8] go9 training via cli.train (10 x 128, bf16 compute, f32 master weights; "
           f"{BATCH} self-play games, train batch {BATCH}; env.max_steps=24 the only cut) "
           f"on {card}: {len(seen['moves'])} self-play moves ({loop_len} K1 and "
@@ -346,10 +475,173 @@ def train_path(card, dev) -> dict:
                       for g in gens)
           + f"; {wall:.1f} s in cli.train; peak memory {peak:.2f} GiB", flush=True)
     print(f"[8] checkpoints training_steps_10/20 restored bit-equal; self-play net == "
-          f"master weights in bf16 after each generation; resumed Trainer's next step "
-          f"bit-equal; losses {losses}", flush=True)
+          f"master weights (bf16, BatchNorm float32) after each generation; resumed "
+          f"Trainer's next step bit-equal; losses {losses}", flush=True)
+    print(f"[8] evaluator on {card}: {len(eval_rows)} evaluation.csv rows, Elo replayed "
+          f"equal, pro metrics over {len(dataset)} positions (dataset on the card == CPU); "
+          f"{out['eval_plies']} evaluation plies of {cfg.search.num_simulations - 1} K1 and "
+          f"{2 * (cfg.search.num_simulations - 1)} K2 launches; "
+          + ", ".join(f"{x:.2f}" for x in seen["eval_s"]) + " s per evaluation, "
+          f"{out['eval_ply_s']:.3f} s per ply (B=1)", flush=True)
     print("[8] " + json.dumps(out), flush=True)
-    return out
+    return out, ckpt_dir
+
+
+def replay_game(label, moves, result, dev, max_steps=24):
+    """Replays ``moves`` through the host ``GoEnv`` on ``dev``: black and
+    white alternate, every move legal, the game over at the end with
+    ``result``."""
+    from alpha_zero_tpu_torch.envs.host import GoEnv
+
+    env = GoEnv(board_size=9, komi=7.5, num_stack=8, max_steps=max_steps, device=dev)
+    for i, (color, move) in enumerate(moves):
+        if color != "BW"[i % 2] or env.is_game_over() or not env.is_legal_move(move):
+            raise SystemExit(f"{label}: move {i} ({color} {move}) illegal on replay")
+        env.step(move)
+    if not env.is_game_over() or env.get_result_string() != result:
+        raise SystemExit(f"{label}: replay ends {env.get_result_string()}, recorded {result}")
+
+
+def match_path(card, dev, ckpt_dir) -> dict:
+    """[9]: ``cli.match.main`` in-process between [8]'s checkpoints at go9
+    full width (``env.max_steps=24``), then one deterministic eval game;
+    K1 and K2 against their plain versions on searched trees at B=1 and
+    B=2, and timed at B=1 and B=64. Returns the numbers and the (K1, K2)
+    launches of the match and of the eval game."""
+    import csv
+
+    import torch
+
+    from alpha_zero_tpu_torch.cli import match as cli_match
+    from alpha_zero_tpu_torch.cli.common import resolve_config
+    from alpha_zero_tpu_torch.cli.play import load_variables
+    from alpha_zero_tpu_torch.eval import evaluator as evaluator_lib
+    from alpha_zero_tpu_torch.eval import match as match_lib
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.search import mcts
+    from alpha_zero_tpu_torch.tools import dma_probe, select_bench
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+    from alpha_zero_tpu_torch.training.selfplay import make_eval_fn
+    from alpha_zero_tpu_torch.utils import sgf as sgf_lib
+    from alpha_zero_tpu_torch.utils.coords import CoordsConvertor
+    from alpha_zero_tpu_torch.utils.device import graph_ms
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    black, white = (os.path.join(ckpt_dir, f"training_steps_{t}") for t in (10, TRAIN_STEPS))
+    out_dir = os.path.join(HERE, "build", "chip_smoke_match")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sets = ["env.max_steps=24"]
+    cfg = resolve_config("go9", sets)
+    sims = cfg.search.num_simulations
+
+    # The match, counted ply by ply.
+    plies = []
+    make_match = match_lib.make_match_move_fn
+    match_lib.make_match_move_fn = lambda *a, **k: counting(make_match(*a, **k), plies)
+    k0 = (select.launches, writer.launches)
+    t0 = time.time()
+    try:
+        cli_match.main(["--device", str(dev), "--config", "go9", "--black_ckpt", black,
+                        "--white_ckpt", white, "--num_games", str(MATCH_GAMES), "--seed", "1",
+                        "--save_match_dir", out_dir] + [x for v in sets for x in ("--set", v)])
+    finally:
+        match_lib.make_match_move_fn = make_match
+    match_s = time.time() - t0
+    match_launches = (select.launches - k0[0], writer.launches - k0[1])
+    check_plies("[9] match", plies, sims)
+    with open(os.path.join(out_dir, "log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if [int(r["game"]) for r in rows] != list(range(MATCH_GAMES)):
+        raise SystemExit(f"[9] log.csv has {len(rows)} rows, expected {MATCH_GAMES}")
+    cc = CoordsConvertor(9)
+    t0 = time.time()
+    for row in rows:
+        with open(os.path.join(out_dir, f"game_{row['game']}.sgf")) as f:
+            game = sgf_lib.parse_sgf(f.read())
+        moves = [(c, cc.to_flat(cc.from_sgf(m))) for c, m in game.moves]
+        if game.result != row["game_result"] or len(moves) != int(row["game_length"]):
+            raise SystemExit(f"[9] game {row['game']}: SGF != log.csv")
+        replay_game(f"[9] match game {row['game']}", moves, row["game_result"], dev)
+    replay_s = time.time() - t0
+    results = [r["game_result"] for r in rows]
+
+    # One deterministic eval game between the same checkpoints.
+    engine = build_engine(cfg.env)
+    black_net, white_net = (load_variables(cfg, path, dev) for path in (black, white))
+    eval_plies = []
+    k0 = (select.launches, writer.launches)
+    stats = evaluator_lib.play_eval_game(
+        engine, counting(evaluator_lib.make_eval_move_fn(engine, cfg.search), eval_plies),
+        black_net, white_net, dev)
+    eval_launches = (select.launches - k0[0], writer.launches - k0[1])
+    check_plies("[9] eval game", eval_plies, sims)
+    replay_game("[9] eval game", stats["moves"], stats["game_result"], dev)
+
+    # K1 and K2 on searched trees at B=1 and B=2 (bit-equal), and at B=1
+    # and B=64 (timed): fresh go9 searches with the step-20 net from
+    # positions 6 random moves in.
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kw = dict(path_cap=min(sims + 1, engine.max_steps + 2),
+              c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
+    times = {}
+    for b in (1, 2, MATCH_GAMES):
+        states = engine.init_batch(b, device=dev)
+        for _ in range(6):
+            pick = torch.multinomial(states.legal[:, :-1], 1, generator=gen)[:, 0]
+            states = engine.step_batch(states, pick.to(torch.int32))
+        _, tree = mcts.batched_search(make_eval_fn(white_net), engine, states, sims,
+                                      return_trees=True)
+        args = select_bench.select_args(tree)
+        t = tree.node_N.shape[1]
+        widx = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).to(torch.int32)
+        arrays = mcts.materialize_arrays(tree)
+        rows_ = [torch.randint(-100, 100, (b,) + a.shape[2:], generator=gen,
+                               device=dev).to(a.dtype) for a in arrays]
+        if b < MATCH_GAMES:
+            got, ref = select(*args, **kw), tree_kernels.select_leaf_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for name, o, r in zip(select_bench.OUTPUTS, got, ref):
+                if o.dtype != r.dtype or not torch.equal(o, r):
+                    raise SystemExit(f"[9] select kernel != plain at B={b}: {name}")
+            for label, arr in (("materialize", arrays),
+                               ("expand", [tree.child_P, tree.node_expanded])):
+                rr = rows_ if label == "materialize" else [
+                    torch.rand((b,) + tree.child_P.shape[2:], generator=gen, device=dev),
+                    torch.ones(b, dtype=torch.bool, device=dev)]
+                for w in (torch.zeros_like(widx) + 1, torch.full_like(widx, -1)):
+                    dma_probe.check_writer(writer, arr, rr, w)
+            print(f"[9] K1 and K2 bit-equal to their plain versions on a searched go9 "
+                  f"tree at B={b} (depth max {int(ref[6].max())}; K2 on the materialize "
+                  f"and expand sets)", flush=True)
+        if b != 2:
+            times[b] = {"K1": select_bench.time_select(select, args, kw, 50),
+                        "K2": graph_ms(lambda: writer(arrays, rows_, widx), 50)}
+    out = {"config": "go9", "reduced": {"env.max_steps": 24}, "match_games": MATCH_GAMES,
+           "match_s": match_s, "match_game_s": match_s / MATCH_GAMES,
+           "match_plies": len(plies),
+           "match_ply_s": sum(t for _, _, t in plies) / len(plies),
+           "black_wins": sum(r.startswith("B+") for r in results),
+           "white_wins": sum(r.startswith("W+") for r in results),
+           "replay_s": replay_s, "eval_game": {k: v for k, v in stats.items() if k != "moves"},
+           "eval_game_plies": len(eval_plies),
+           "eval_ply_s": sum(t for _, _, t in eval_plies) / len(eval_plies),
+           "k1_ms": {b: v["K1"] for b, v in times.items()},
+           "k2_ms": {b: v["K2"] for b, v in times.items()}}
+    print(f"[9] go9 cli.match (10 x 128, bf16; env.max_steps=24 the only cut) on {card}: "
+          f"{MATCH_GAMES} games of training_steps_10 (black) vs _{TRAIN_STEPS} in "
+          f"{match_s:.1f} s ({match_s / MATCH_GAMES:.3f} s per game, {len(plies)} plies of "
+          f"{out['match_ply_s']:.3f} s, {sims - 1} K1 and {2 * (sims - 1)} K2 launches "
+          f"each); black {out['black_wins']}, white {out['white_wins']}; every move legal "
+          f"on a host-env replay ({replay_s:.1f} s), results == log.csv. Eval game: "
+          f"{stats['game_result']} in {len(eval_plies)} plies of {out['eval_ply_s']:.3f} s",
+          flush=True)
+    print(f"[9] K1 (graph, warm) at B=1 {times[1]['K1']['ms'] * 1e3:.2f} us, at "
+          f"B={MATCH_GAMES} {times[MATCH_GAMES]['K1']['ms'] * 1e3:.2f} us; K2 materialize "
+          f"set at B=1 {times[1]['K2'] * 1e3:.2f} us, at B={MATCH_GAMES} "
+          f"{times[MATCH_GAMES]['K2'] * 1e3:.2f} us, on {card}", flush=True)
+    print("[9] " + json.dumps(out), flush=True)
+    shutil.rmtree(out_dir)
+    return out, match_launches, eval_launches
 
 
 def main() -> None:
@@ -489,7 +781,8 @@ def main() -> None:
     # --- 5. The main path: go9 self-play moves.
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
     select.launches = writer.launches = 0
-    rate, _ = play_moves("[5] go9", cfg, engine, net, 1 + TIMED_MOVES, dev)
+    rate, _, move_kernels = play_moves("[5] go9", cfg, engine, net, 1 + TIMED_MOVES, dev,
+                                       profiled=True)
     launches = {"go9_selfplay": (select.launches, writer.launches)}
     loop_len = cfg.search.max_new_sims
     print(f"[5] go9 self-play B={BATCH} 200 sims reuse max_new_sims={loop_len}: "
@@ -498,6 +791,9 @@ def main() -> None:
           f"({loop_len}/move), {writer.launches} tree-row writer launches "
           f"({2 * loop_len}/move); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[5] one more go9 move under torch.profiler: {move_kernels} device kernel "
+          f"launches (kernels, copies and memsets; {loop_len} K1 and {2 * loop_len} K2 "
+          f"among them)", flush=True)
 
     # --- 6. K2/K3 (row scatter) against their plain version, then the probe.
     scatters = (scatter_kernels.scatter_rows, scatter_kernels.scatter_rows_bulk)
@@ -623,7 +919,7 @@ def main() -> None:
     g_engine = build_engine(g_cfg.env)
     g_net = build_network(g_cfg.env, g_cfg.network, device=dev, seed=0)
     select.launches = writer.launches = 0
-    g_rate, g_sp = play_moves("[7] gomoku13", g_cfg, g_engine, g_net, 1 + GOMOKU_TIMED_MOVES,
+    g_rate, g_sp, _ = play_moves("[7] gomoku13", g_cfg, g_engine, g_net, 1 + GOMOKU_TIMED_MOVES,
                               dev)
     launches["gomoku13_selfplay"] = (select.launches, writer.launches)
     g_loop = g_cfg.search.max_new_sims
@@ -636,10 +932,18 @@ def main() -> None:
     del g_sp
     check_engine_on_card("[7]", g_engine, 64, dev)
 
-    # --- 8. The training path: cli.train at go9 full width.
+    # --- 8. The training path: cli.train at go9 full width, the evaluator on.
     select.launches = writer.launches = 0
-    train_path(card, dev)
-    launches["go9_training"] = (select.launches, writer.launches)
+    train, ckpt_dir = train_path(card, dev)
+    eval_k1, eval_k2 = train["eval_launches"]
+    launches["go9_training"] = (select.launches - eval_k1, writer.launches - eval_k2)
+
+    # --- 9. Matches between [8]'s checkpoints: cli.match and an eval game.
+    select.launches = writer.launches = 0
+    matches, match_launches, game_launches = match_path(card, dev, ckpt_dir)
+    shutil.rmtree(ckpt_dir)  # 24 MB a checkpoint; the CSVs stay
+    launches["go9_eval"] = (eval_k1 + game_launches[0], eval_k2 + game_launches[1])
+    launches["go9_match"] = match_launches
 
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with
@@ -661,6 +965,8 @@ def main() -> None:
         "bound_ms": mat["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "b1_ms": matches["k2_ms"][1],
+        f"b{MATCH_GAMES}_ms": matches["k2_ms"][MATCH_GAMES],
         "expand_ms": exp["graph_ms"],
         "expand_cold_ms": exp["cold_ms"],
         "expand_plain_ms": set_line("put_rows", "expand")["graph_ms"],
@@ -694,6 +1000,8 @@ def main() -> None:
         "ms": times["ms"],
         "cold_ms": times["cold_ms"],
         "back_to_back_ms": times["back_to_back_ms"],
+        "b1_ms": matches["k1_ms"][1]["ms"],
+        f"b{MATCH_GAMES}_ms": matches["k1_ms"][MATCH_GAMES]["ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],

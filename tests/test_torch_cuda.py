@@ -6,6 +6,7 @@ card and no JAX they run with the repository's conftest left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import dataclasses
 
 import pytest
@@ -74,6 +75,25 @@ def test_select_kernel_bit_equal_to_plain(board_size, sims, batch, cuda_device):
     for o, r in zip(out, ref):
         assert o.dtype == r.dtype and torch.equal(o, r)
     assert int(ref[6].max()) >= 2
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_select_kernel_bit_equal_at_one_and_two_lanes(batch, cuda_device):
+    """B=1 and B=2, the batches of the eval game, the host-env agent and
+    the lockstep evaluator's games: the deepest lanes of grown go9-shaped
+    trees, cut out as trees of their own."""
+    args, kw = _grown_trees(9, 64, 37, cuda_device)
+    depth = tree_kernels.select_leaf_plain(*args, **kw)[6]
+    lanes = torch.argsort(depth, descending=True, stable=True)[:batch]
+    args = tuple(a[lanes].contiguous() for a in args)
+    before = tree_kernels.select_leaf_batched.launches
+    out = tree_kernels.select_leaf_batched(*args, **kw)
+    ref = tree_kernels.select_leaf_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tree_kernels.select_leaf_batched.launches == before + 1
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+    assert int(ref[6].min()) >= 2
 
 
 # (T, A) of the configs' trees, and one whose lane needs more than the
@@ -288,6 +308,68 @@ def test_writer_bit_equal_to_plain(case, cuda_device):
     torch.cuda.synchronize()
     assert scatter_kernels.write_rows.launches == before + 1
     check_writer(scatter_kernels.write_rows, arrays, rows, torch.full_like(widx, -1))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_writer_bit_equal_on_small_batch_trees(batch, cuda_device):
+    """K2 on a searched go9-shaped tree's materialize and expand sets at the
+    eval game's B=1 and the lockstep evaluator's B=2, every lane writing
+    and none."""
+    engine, net, search, _ = _small_setup(9, 64, cuda_device)
+    states = engine.init_batch(batch, device=cuda_device)
+    _, tree = mcts.batched_search(selfplay.make_eval_fn(net), engine, states, 64,
+                                  return_trees=True)
+    t = tree.node_N.shape[1]
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    widx = torch.randint(0, t, (batch,), generator=gen, device=cuda_device).to(torch.int32)
+    for arrays in (mcts.materialize_arrays(tree), [tree.child_P, tree.node_expanded]):
+        rows = [torch.randint(-100, 100, (batch,) + a.shape[2:], generator=gen,
+                              device=cuda_device).to(a.dtype) for a in arrays]
+        for w in (widx, torch.full_like(widx, -1)):
+            before = scatter_kernels.write_rows.launches
+            check_writer(scatter_kernels.write_rows, arrays, rows, w)
+            torch.cuda.synchronize()
+            assert scatter_kernels.write_rows.launches == before + 1
+
+
+def test_bfloat16_net_card_matches_cpu(cuda_device):
+    """The go9-width bf16 net (BatchNorm float32) on the card against the
+    same net on the CPU, both against the float32 net on the CPU: the
+    card's bf16 error at most twice the CPU's (max abs, logits and value).
+    cuDNN's bf16 convolutions round in another order than the CPU's;
+    BatchNorm normalizes in float32 on both. Random weights through ten
+    blocks give large logits, so the bf16 errors are whole units (on the
+    H100: 4.6 on the card, 4.7 on the CPU) and the two bf16 nets stand as
+    far apart (6.0): no absolute bound between them holds."""
+    from alpha_zero_tpu_torch.models.resnet import to_inference_dtype
+
+    cfg = config_lib.go9()
+    master = build_network(cfg.env, cfg.network, device="cpu", seed=0, dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in master.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.3, 0.3, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    obs = (torch.rand((64, 9, 9, 17), generator=gen) < 0.3).to(torch.int8)
+    cpu = to_inference_dtype(copy.deepcopy(master), "bfloat16")
+    card = to_inference_dtype(copy.deepcopy(master), "bfloat16").to(cuda_device)
+    for name, value in card.state_dict().items():
+        if "bn" in name and value.is_floating_point():
+            assert value.dtype == torch.float32, name
+    with torch.no_grad():
+        ref, o_cpu = master(obs), cpu(obs)
+        o_card = card(obs.to(cuda_device))
+    o_card = [x.cpu() for x in o_card]
+
+    def err(out, want):
+        return [float((a - b).abs().max()) for a, b in zip(out, want)]
+
+    card_err, cpu_err, apart = err(o_card, ref), err(o_cpu, ref), err(o_card, o_cpu)
+    print(f"go9 bf16 net, max abs (logits, value): card vs f32 {card_err}, "
+          f"CPU vs f32 {cpu_err}, card vs CPU {apart}; f32 logits max abs "
+          f"{float(ref.pi_logits.abs().max()):.1f}")
+    assert card_err[0] <= 2 * cpu_err[0] and card_err[1] <= 2 * cpu_err[1]
 
 
 def test_writer_is_one_kernel_launch_per_call(cuda_device):

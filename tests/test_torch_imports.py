@@ -38,12 +38,18 @@ def _imports(path):
             yield node.lineno, node.module or ""
 
 
+# The evaluator path's modules, each a copy or port of its JAX namesake.
+EVAL_PATH = ("eval/__init__.py", "eval/elo.py", "eval/dataset.py", "eval/match.py",
+             "eval/evaluator.py", "envs/host.py", "cli/play.py", "cli/match.py")
+
+
 def test_port_sources_import_nothing_of_jax():
     offenders = [f"{path.relative_to(REPO)}:{line} {name}"
                  for path in _port_files() for line, name in _imports(path)
                  if name.split(".")[0] in BANNED]
     assert not offenders, offenders
     assert len(_port_files()) > 10
+    assert {PORT / p for p in EVAL_PATH} <= set(_port_files())
 
 
 def test_kernel_layer_imports_nothing_above_it():
@@ -98,3 +104,37 @@ def test_entry_points_default_to_cuda():
         cli_train.main(["--config", "go9", "--no-eval"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_state_from_flax({}, cfg.env, cfg.network, cfg.train)
+
+
+def test_evaluator_path_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.cli import match as cli_match
+    from alpha_zero_tpu_torch.cli import play as cli_play
+    from alpha_zero_tpu_torch.envs.host import GoEnv, GomokuEnv
+    from alpha_zero_tpu_torch.eval import dataset, evaluator, match
+    from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+
+    cfg = config_lib.go9()
+    engine = build_engine(cfg.env)
+    net = build_network(cfg.env, cfg.network, device="cpu")
+    (tmp_path / "a.sgf").write_text("(;SZ[9]KM[7.5]RE[B+1.5];B[cc])")
+    calls = [
+        lambda: GoEnv(), lambda: GomokuEnv(),
+        lambda: dataset.build_eval_dataset(str(tmp_path), 9, 8),
+        lambda: dataset.build_eval_dataset(str(tmp_path), 9, 8, fast=False),
+        lambda: match.play_matches(engine, cfg.search, net, net, 2),
+        lambda: match.play_matches_asym(engine, cfg.search, cfg.search, net, net, 2),
+        lambda: evaluator.Evaluator(engine, net, cfg.search),
+        lambda: evaluator.play_eval_game(engine, None, net, net),
+        lambda: evaluator.eval_on_pro_games(net, dataset.build_eval_dataset(
+            str(tmp_path), 9, 8, device="cpu")),
+        lambda: cli_play.load_variables(cfg, ""),
+        lambda: cli_match.main(["--black_ckpt", "", "--white_ckpt", ""]),
+        lambda: cli_play.main([]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -10,7 +10,7 @@
   checkpoint restored bit-equal to the Trainer's state.
 - ``cli.train``: runs to its step budget with ``--device cpu --no-eval``,
   writes the JAX package's CSV headers and restorable checkpoints, resumes
-  from one, and refuses to run without ``--no-eval``.
+  from one, and runs the evaluator unless ``--no-eval``.
 """
 
 import copy
@@ -35,6 +35,8 @@ from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
 from alpha_zero_tpu_torch.training import learner, pipeline
 from alpha_zero_tpu_torch.utils import sgf
 from alpha_zero_tpu_torch.utils.csv_writer import CsvWriter
+
+from torch_parity import one_torch_thread  # noqa: F401
 
 LOGGER = logging.getLogger("test")
 TRAINING_HEADER = ["datetime", "training_steps", "policy_loss", "value_loss",
@@ -283,10 +285,14 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
     assert ckpt_lib.latest_checkpoint(str(tmp_path / "ckpt")).endswith("training_steps_6")
 
 
-def test_cli_refuses_to_run_without_no_eval(tmp_path, capsys):
-    args = [a for a in _cli_args(tmp_path) if a != "--no-eval"]
-    with pytest.raises(SystemExit) as exc:
-        cli_train.main(args)
-    assert exc.value.code == 2
-    assert "evaluator is not ported" in capsys.readouterr().err
-    assert not (tmp_path / "ckpt").exists()
+def test_cli_refuses_to_run_without_no_eval(tmp_path):
+    """``--no-eval`` is optional now: without it ``cli.train`` does not
+    refuse but trains with the evaluator, one ``evaluation.csv`` row per
+    checkpoint; with it there is no such file."""
+    cli_train.main(_cli_args(tmp_path))
+    assert not (tmp_path / "logs" / "evaluation.csv").exists()
+    args = [a for a in _cli_args(tmp_path / "eval", "run.eval_games=2") if a != "--no-eval"]
+    cli_train.main(args)
+    with open(tmp_path / "eval" / "logs" / "evaluation.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["training_steps"]) for r in rows] == [2, 4]

@@ -6,6 +6,19 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Runs a test module on one torch thread. Its tests drive many small
+    ops, whose intra-op threads, several test workers on one host's cores
+    at once, otherwise slow each other down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def np_tree(x):
@@ -36,3 +49,27 @@ def assert_tree_equal(ref, out, atol: dict | None = None, path: str = "") -> Non
         np.testing.assert_array_equal(ref, out.astype(ref.dtype), err_msg=path)
     else:
         np.testing.assert_allclose(ref, out, rtol=0, atol=tol, err_msg=path)
+
+
+class JaxGumbels:
+    """The move-sampling draws of the JAX package's lockstep games from
+    ``PRNGKey(seed)``: at ply p, ``rng, sub = split(rng)``, then
+    ``jax.random.categorical(split(sub, 2)[1], logits)``, which is
+    ``argmax(gumbel(key, logits.shape) + logits)``. Called with a ply, it
+    returns that ply's draw ``f32[num_games, num_actions]`` as a tensor."""
+
+    def __init__(self, seed: int, num_games: int, num_actions: int) -> None:
+        import jax
+
+        self._jax = jax
+        self._rng = jax.random.PRNGKey(seed)
+        self._shape = (num_games, num_actions)
+        self._draws = []
+
+    def __call__(self, ply: int):
+        jax = self._jax
+        while len(self._draws) <= ply:
+            self._rng, sub = jax.random.split(self._rng)
+            key = jax.random.split(sub, 2)[1]
+            self._draws.append(np.array(jax.random.gumbel(key, self._shape)))
+        return torch.from_numpy(self._draws[ply])
