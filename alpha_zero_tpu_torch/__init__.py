@@ -11,11 +11,13 @@ function's counterpart is found under the same path:
   wrappers and plain PyTorch versions; dihedral augmentation.
 - ``search``   — batched MCTS over fixed-capacity array trees.
 - ``training`` — the batched self-play step, the learner, replay,
-  checkpoints and the single-host ``Trainer``.
-- ``cli``      — ``python -m alpha_zero_tpu_torch.cli.train``.
+  checkpoints and the ``Trainer``.
+- ``eval``     — Elo, the pro-game dataset, matches and the evaluator.
+- ``parallel`` — data-parallel training over ``torch.distributed``.
+- ``cli``      — ``python -m alpha_zero_tpu_torch.cli.{train,play,match}``.
 
-Not ported yet: the evaluator and ``eval/``, the match/play/gui/plot/
-analysis CLIs, ``Trainer.profile`` and the multi-device paths.
+Not ported yet: the gui/plot/analysis CLIs and the model axis
+(``parallel.mdl > 1``).
 
 The package imports torch and numpy only — never JAX, Flax or the JAX
 package. Entry points run on ``device="cuda"`` unless the caller asks for

@@ -6,6 +6,22 @@ go19_jumbo / gomoku13 / gomoku9) and override any field with
 per-checkpoint evaluator runs unless ``--no-eval``: latest-vs-previous games
 and Elo per checkpoint, plus pro-game metrics when ``run.eval_games_dir``
 is set.
+
+Data parallel, two ways:
+
+- ``--set parallel.dp=k`` (k > 1) starts k ranks on this host, which split
+  ``parallel.selfplay_batch_size`` games; rank r runs on
+  ``cuda:{r % cards}``, or on the CPU with ``--device cpu``;
+- ``--set parallel.coordinator_address=host:port --set
+  parallel.num_processes=n --set parallel.process_id=i`` makes this process
+  rank i of n, with ``selfplay_batch_size`` games of its own: start one on
+  every card of every host, each with its own ``process_id``; rank 0 serves
+  the address.
+
+``train.batch_size`` is the global batch either way. The ranks talk over
+NCCL when each has a card of its own and over gloo when they share one or
+run on the CPU (``parallel/mesh.py:rank_device``). ``parallel.mdl > 1`` is
+not ported (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -14,12 +30,40 @@ import argparse
 import dataclasses
 import json
 
+import torch
+
 from alpha_zero_tpu_torch.cli.common import add_config_args, resolve_config
+from alpha_zero_tpu_torch.ops import _build
+from alpha_zero_tpu_torch.parallel import mesh as mesh_lib
+from alpha_zero_tpu_torch.parallel import multihost
 from alpha_zero_tpu_torch.training import pipeline
+from alpha_zero_tpu_torch.utils.device import resolve_device
 from alpha_zero_tpu_torch.utils.logging import create_logger
 
 
-def main(argv=None) -> None:
+def _train(cfg, device, evaluate: bool, prepare) -> None:
+    trainer = pipeline.Trainer(cfg, device=device)
+    if evaluate:
+        trainer.enable_evaluator()
+    if prepare is not None:
+        prepare(trainer)
+    trainer.run()
+
+
+def _rank(rank: int, cfg, device, evaluate: bool, prepare, address: str, world: int) -> None:
+    """One rank: joins the process group at ``address``, trains on its
+    device, leaves the group."""
+    dev = multihost.initialize(address, world, rank, device)
+    try:
+        _train(cfg, dev, evaluate, prepare)
+    finally:
+        multihost.shutdown()
+
+
+def main(argv=None, prepare=None) -> None:
+    """Trains as the arguments say. ``prepare(trainer)``, when given, runs
+    in every rank with its Trainer just before it trains; spawned ranks get
+    it pickled, so it must be a module-level function."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_config_args(parser)
     parser.add_argument("--no-eval", action="store_true",
@@ -29,12 +73,22 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     cfg = resolve_config(args.config, args.set)
+    par = cfg.parallel
+    mesh_lib.check_mdl(par.mdl)
     logger = create_logger(cfg.run.log_level)
     logger.info("config: %s", json.dumps(dataclasses.asdict(cfg), default=str, indent=1))
-    trainer = pipeline.Trainer(cfg, device=args.device)
-    if not args.no_eval:
-        trainer.enable_evaluator()
-    trainer.run()
+    evaluate = not args.no_eval
+    if par.coordinator_address:
+        _rank(par.process_id, cfg, args.device, evaluate, prepare,
+              par.coordinator_address, par.num_processes)
+    elif par.dp > 1:
+        if resolve_device(args.device).type == "cuda":
+            _build.build_all()  # once, before the ranks load the kernels
+        torch.multiprocessing.spawn(
+            _rank, nprocs=par.dp,
+            args=(cfg, args.device, evaluate, prepare, multihost.local_address(), par.dp))
+    else:
+        _train(cfg, args.device, evaluate, prepare)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from alpha_zero_tpu_torch.parallel import multihost
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
 _BN_EPS = 1e-5       # Flax BatchNorm's default epsilon
@@ -42,12 +43,31 @@ def _conv(cin: int, cout: int, k: int, pad: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, padding=pad, bias=False)
 
 
+def batch_moments(xf: torch.Tensor):
+    """Flax's train-mode moments of ``xf`` ``[B, C, H, W]`` per channel: the
+    mean and the biased variance E[x^2] - E[x]^2, clipped at 0, over the
+    whole batch. When a process group of more than one rank is up, the
+    batch is the global one: Σx, Σx² and the count are summed across ranks
+    in one ``all_reduce`` that carries autograd (``multihost.all_reduce_sum``),
+    as Flax computes them on the dp-sharded array."""
+    if multihost.world_size() == 1:
+        mean = xf.mean(dim=(0, 2, 3))
+        return mean, torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    c = xf.shape[1]
+    sums = multihost.all_reduce_sum(torch.cat([
+        xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), xf.new_full((1,), xf.numel() // c)]))
+    mean = sums[:c] / sums[-1]
+    return mean, torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode forward is Flax's ``BatchNorm``:
     the batch moments in float32 (float64 for a float64 input), the
-    variance biased (E[x^2] - E[x]^2, clipped at 0), the input normalized
+    variance biased (E[x^2] - E[x]^2, clipped at 0), over the global batch
+    when ranks train together (``batch_moments``), the input normalized
     with them, and the running statistics updated with the same biased
-    variance (torch's own forward updates them with the unbiased one).
+    variance (torch's own forward updates them with the unbiased one;
+    ``nn.SyncBatchNorm`` too, so it is no substitute).
 
     Eval mode is torch's ``F.batch_norm``, which takes a bf16 input with
     float32 weights and statistics, normalizes in float32 and returns bf16
@@ -59,8 +79,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        mean, var = batch_moments(xf)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)

@@ -25,9 +25,15 @@ from alpha_zero_tpu_torch.training.learner import TrainState, create_train_state
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
 
+def checkpoint_path(ckpt_dir: str, training_steps: int) -> str:
+    return os.path.abspath(os.path.join(ckpt_dir, f"training_steps_{training_steps}"))
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, training_steps: int) -> str:
-    """Writes ``ckpt_dir/training_steps_{t}`` atomically; returns its path."""
-    path = os.path.abspath(os.path.join(ckpt_dir, f"training_steps_{training_steps}"))
+    """Writes ``ckpt_dir/training_steps_{t}`` atomically (making the
+    directory if needed); returns its path."""
+    path = checkpoint_path(ckpt_dir, training_steps)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "net": state.net.state_dict(),
         "optimizer": state.optimizer.state_dict(),

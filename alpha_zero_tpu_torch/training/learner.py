@@ -15,6 +15,13 @@ The port of ``alpha_zero_tpu.training.learner``:
   inference dtype under ``torch.autocast`` (Flax ``dtype=bfloat16`` with
   float32 params); its BatchNorm layers run Flax's train-mode statistics.
 
+Data parallel (a process group of more than one rank, ``parallel/``):
+each rank steps on its rows of the global batch, the BatchNorm moments are
+the global batch's (``models/resnet.py:batch_moments``), and one
+``all_reduce`` averages the gradients and the two losses across ranks
+before the optimizer step, so every rank takes the global batch's step and
+reports its losses (XLA's psum of the dp-sharded step in the JAX package).
+
 PyTorch idiom: the state holds the module, optimizer and scheduler, and a
 train step updates it in place. The augmentation pick is an input (the
 transform id), drawn by the caller.
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 
 from alpha_zero_tpu_torch.models.resnet import AlphaZeroNet
 from alpha_zero_tpu_torch.ops.symmetry import IDENTITY, apply_transform
+from alpha_zero_tpu_torch.parallel import multihost
 
 
 @dataclasses.dataclass
@@ -100,6 +108,9 @@ def make_train_step(compute_dtype: str = "float32", argument_data: bool = True):
         policy_loss, value_loss = loss_fn(state.net, states, target_pi, target_v, dtype)
         state.optimizer.zero_grad(set_to_none=True)
         (policy_loss + value_loss).backward()
+        if multihost.world_size() > 1:
+            policy_loss, value_loss = multihost.average_gradients(
+                list(state.net.parameters()), policy_loss.detach(), value_loss.detach())
         state.optimizer.step()
         state.scheduler.step()
         state.training_steps += 1

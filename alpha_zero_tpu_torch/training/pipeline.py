@@ -1,8 +1,9 @@
-"""Single-host actor/learner pipeline as a generation loop on one device.
+"""The actor/learner pipeline as a generation loop, on one device or on
+each of several data-parallel ranks.
 
-The port of ``alpha_zero_tpu.training.pipeline`` (one host, one device).
-The actor fleet is one batched self-play step over all games, so the
-topology is a sequential loop:
+The port of ``alpha_zero_tpu.training.pipeline``. The actor fleet is one
+batched self-play step over all games, so the topology is a sequential
+loop:
 
     repeat:
       1. self-play until ``games_per_ckpt`` new games finish
@@ -26,8 +27,25 @@ previous one after its generation and writes ``evaluation.csv`` and an eval
 SGF, inline or (``run.eval_async``) on a worker thread that gets a copy of
 the weights; a failed evaluation is logged and skips its row.
 
-Not ported yet: ``Trainer.profile``, and the multi-device and multi-host
-paths (``parallel.dp * parallel.mdl > 1`` or a coordinator address raise).
+Data parallel (a process group of ``parallel.dp`` ranks, or
+``parallel.num_processes`` with a coordinator; ``cli/train.py`` starts them
+and ``parallel/`` has the collectives): every rank runs this loop on its own
+games (the game batch split over the local ranks, or
+``selfplay_batch_size`` a process with a coordinator) and its own replay
+partition, with its own self-play seed stream and its own ``actor{rank}.csv``
+and ``replay_state_p{rank}.npz``. A fence every ``parallel.fence_interval``
+self-play steps, and once at the end of the loop, sums the finished games
+across ranks, so every rank leaves self-play on the same step; rank 0 feeds
+the global counts to the resignation controller and broadcasts its
+threshold. Each rank samples ``batch_size / world`` rows, and trains only
+when every rank can sample; the step is the global batch's (BatchNorm
+moments and gradients across ranks). Rank 0 alone writes ``training.csv``
+(``total_games`` and ``total_samples`` counted over all ranks), the
+checkpoints and the evaluator's rows; every rank refreshes its self-play
+net. The model axis (``parallel.mdl > 1``) raises: ROADMAP A10b.
+
+``Trainer.profile`` traces a few self-play steps and one train step with
+``torch.profiler`` into a Chrome trace.
 """
 
 from __future__ import annotations
@@ -38,6 +56,7 @@ import os
 import queue
 import threading
 from collections import deque, namedtuple
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -48,6 +67,8 @@ from alpha_zero_tpu_torch.envs.go import GoEngine
 from alpha_zero_tpu_torch.envs.gomoku import GomokuEngine
 from alpha_zero_tpu_torch.models.resnet import build_network, to_inference_dtype
 from alpha_zero_tpu_torch.ops.symmetry import random_transform_id
+from alpha_zero_tpu_torch.parallel import mesh as mesh_lib
+from alpha_zero_tpu_torch.parallel import multihost
 from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
 from alpha_zero_tpu_torch.training import learner as learner_lib
 from alpha_zero_tpu_torch.training import selfplay as selfplay_lib
@@ -141,19 +162,71 @@ class ResignController:
             )
             self.threshold = new_threshold
 
+    def on_games_global(self, num_marked: int, num_could_won: int,
+                        games_before: int, games_after: int) -> None:
+        """The data-parallel update, on rank 0 at each fence: the counts of
+        every rank's games since the last fence, so the controller samples
+        the whole stream. Reset and adjust points are count windows crossed
+        between ``games_before`` and ``games_after``, which matches the game
+        by game cadence up to one fence interval."""
+        cfg = self.cfg
+        if not cfg.enabled or games_after < cfg.no_resign_games:
+            return
+        self.resign_count += num_marked
+        self.could_won_count += num_could_won
+        crossed_start = games_before < cfg.no_resign_games <= games_after
+        crossed_reset = cfg.reset_fp_interval > 0 and (
+            games_after // cfg.reset_fp_interval
+            > max(games_before, cfg.no_resign_games) // cfg.reset_fp_interval
+        )
+        if crossed_start or crossed_reset:
+            self.resign_count = self.last_resign_count = self.could_won_count = 0
+            self.threshold = cfg.init_resign_threshold
+            self.logger.info(f"Reset resignation threshold to {self.threshold}")
+            return
+        adjust_every = int(self.games_per_ckpt * 0.5 * cfg.disable_resign_ratio * 0.5)
+        if adjust_every > 0 and self.resign_count - self.last_resign_count >= adjust_every:
+            self.last_resign_count = self.resign_count
+            self._adjust()
+
 
 class Trainer:
     """Owns all state of a training run; ``run()`` drives it to completion.
 
     Randomness comes from three streams drawn from ``run.seed``: the initial
-    weights, the self-play draws (a generator on ``device``) and the
-    augmentation picks (a host generator)."""
+    weights, the self-play draws (a generator on ``device``; each rank's own
+    when data parallel) and the augmentation picks (a host generator, the
+    same on every rank, as one pick serves the whole global batch).
+
+    Data parallel, the process group must be up before the Trainer is built
+    (``parallel.multihost.initialize``; ``cli/train.py`` does it), with
+    ``parallel.dp`` ranks, or ``parallel.num_processes`` with a coordinator
+    address, and ``device`` the rank's own."""
 
     def __init__(self, cfg: AlphaZeroConfig, device="cuda") -> None:
-        if cfg.parallel.dp * cfg.parallel.mdl > 1 or cfg.parallel.coordinator_address:
-            raise NotImplementedError(
-                "multi-device and multi-host training are not ported yet: set "
-                "parallel.dp=1, parallel.mdl=1 and no parallel.coordinator_address")
+        par = cfg.parallel
+        self.world = multihost.world_size()
+        self.rank = multihost.rank()
+        self.mesh = mesh_lib.make_mesh(
+            par.num_processes if par.coordinator_address else par.dp, par.mdl)
+        if self.mesh.dp != self.world:
+            raise RuntimeError(
+                f"the config asks for {self.mesh.dp} data-parallel ranks and the process "
+                f"group has {self.world}: start the ranks with cli.train, or call "
+                "parallel.multihost.initialize in each before building the Trainer")
+        self.multihost = self.world > 1
+        self.is_host0 = self.rank == 0
+        # Games a rank: the local ranks split the game batch; with a
+        # coordinator it counts one process's games, as JAX's counts a host's.
+        split = 1 if par.coordinator_address else self.world
+        if par.selfplay_batch_size % split:
+            raise ValueError(f"parallel.selfplay_batch_size={par.selfplay_batch_size} must "
+                             f"divide by parallel.dp={split}")
+        batch = par.selfplay_batch_size // split
+        if cfg.train.batch_size % self.world:
+            raise ValueError(f"train.batch_size={cfg.train.batch_size} must divide by the "
+                             f"{self.world} ranks")
+        self.local_batch_size = cfg.train.batch_size // self.world
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = create_logger(cfg.run.log_level)
@@ -166,6 +239,9 @@ class Trainer:
         n = cfg.env.board_size
         obs_shape = (n, n, cfg.env.num_planes)
         init_seed, sp_seed, aug_seed = np.random.SeedSequence(cfg.run.seed).generate_state(3)
+        if self.multihost:
+            # Decorrelate the ranks' games (JAX folds in the process index).
+            sp_seed = np.random.SeedSequence([int(sp_seed), self.rank]).generate_state(1)[0]
         self.generator = torch.Generator(device=self.device).manual_seed(int(sp_seed))
         self.aug_generator = torch.Generator().manual_seed(int(aug_seed))
         net = build_network(cfg.env, cfg.network, device=self.device,
@@ -190,7 +266,6 @@ class Trainer:
             cfg.resign, cfg.train.games_per_ckpt, self.logger
         )
 
-        batch = cfg.parallel.selfplay_batch_size
         self.sp_state = selfplay_lib.init_selfplay_state(
             self.engine, batch, self.generator,
             resign_threshold=self.resign_controller.threshold,
@@ -203,15 +278,17 @@ class Trainer:
         self.accumulator = selfplay_lib.EpisodeAccumulator(
             batch, num_planes=cfg.env.num_planes)
 
-        self.actor_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "actor0.csv"))
+        self.actor_writer = CsvWriter(self._actor_csv_path())
         self.train_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "training.csv"),
-                                      buffer_size=1)
+                                      buffer_size=1)  # written by rank 0 only
         self.eval_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "evaluation.csv"),
                                      buffer_size=1)
         self.evaluator = None  # built by enable_evaluator()
         self._eval_failures = 0  # consecutive failed evaluations
         self._eval_queue: Optional[queue.Queue] = None
-        self._replay_path = os.path.join(cfg.run.ckpt_dir, "replay_state.npz")
+        self._replay_path = os.path.join(
+            cfg.run.ckpt_dir,
+            f"replay_state_p{self.rank}.npz" if self.multihost else "replay_state.npz")
         self._last_replay_save = 0
         self.timer = Timer()
         self.training_steps = 0
@@ -237,6 +314,23 @@ class Trainer:
                     f"Replay snapshot {cfg.run.load_replay} unreadable "
                     f"({e}); starting with an empty replay")
 
+        # Games and samples of every rank (advanced by the harvest, or by
+        # the fences when data parallel).
+        self.global_games_added = self.replay.num_games_added
+        self.global_samples_added = self.replay.num_samples_added
+        if self.multihost:
+            self.global_games_added, self.global_samples_added = (int(x) for x in (
+                multihost.global_sum([self.replay.num_games_added,
+                                      self.replay.num_samples_added])))
+            # Every rank starts from rank 0's weights and optimizer state
+            # (the same bits when all built them from run.seed).
+            net = self.train_state.net
+            multihost.broadcast_tensors(
+                list(net.state_dict().values())
+                + [self.train_state.optimizer.state[p]["momentum_buffer"]
+                   for p in net.parameters() if p in self.train_state.optimizer.state])
+            self._refresh_play_net()
+
         # Resign-threshold continuity: the controller enables the threshold
         # on the games_added == no_resign_games crossing, which a resumed run
         # past that point never sees again. Re-seed from the last actor-CSV
@@ -244,7 +338,7 @@ class Trainer:
         if (
             cfg.resign.enabled
             and self.engine.has_resign_move
-            and self.replay.num_games_added >= cfg.resign.no_resign_games
+            and self.global_games_added >= cfg.resign.no_resign_games
             and self.resign_controller.threshold <= -1.0
         ):
             t = self._last_recorded_resign_threshold()
@@ -254,12 +348,17 @@ class Trainer:
             self.logger.info(
                 f"Resign threshold resumed at {self.resign_controller.threshold}"
             )
+        self.resign_controller.threshold = multihost.broadcast_from_host0(
+            self.resign_controller.threshold)
+
+    def _actor_csv_path(self) -> str:
+        return os.path.join(self.cfg.run.logs_dir, f"actor{self.rank}.csv")
 
     def _last_recorded_resign_threshold(self) -> Optional[float]:
-        """Last ACTIVE threshold in the actor CSV. Rows with -1.0 are
+        """Last ACTIVE threshold in this rank's actor CSV. Rows with -1.0 are
         pre-activation; an active controller never reaches -1.0 (its floor
         is -0.9999), so only values above -1.0 count."""
-        path = os.path.join(self.cfg.run.logs_dir, "actor0.csv")
+        path = self._actor_csv_path()
         try:
             last = None
             with open(path) as f:
@@ -290,12 +389,19 @@ class Trainer:
         done.record()
         return host, done
 
-    def selfplay_until(self, target_new_games: int,
+    def selfplay_until(self, target_new_games: float,
                        max_steps: Optional[int] = None) -> int:
-        """Runs self-play until ``target_new_games`` finish; returns how
-        many did."""
+        """Runs self-play until ``target_new_games`` finish (across all
+        ranks when data parallel: every rank leaves on the same step);
+        returns how many did."""
         new_games = 0
         steps = 0
+        # Data parallel: the count advances only at fences, every
+        # ``fence_interval`` steps, so it is the same on every rank; between
+        # fences each rank counts its finished, resign-marked, could-have-won
+        # games and their samples in ``pending``.
+        fence_k = max(1, self.cfg.parallel.fence_interval)
+        pending = [0, 0, 0, 0]
         # Harvest two steps behind the dispatch: step k's outputs are read
         # on the host while steps k+1 and k+2 run. The price is two steps
         # of staleness in the resign threshold and the game-count exit
@@ -308,21 +414,30 @@ class Trainer:
                     self.sp_state, self.generator, self.resign_controller.threshold)
                 in_flight.append(self._to_host(out))
                 if len(in_flight) > harvest_depth:
-                    new_games += self._harvest_step(*in_flight.popleft())
+                    new_games += self._harvest_step(*in_flight.popleft(), pending)
             steps += 1
+            if self.multihost and steps % fence_k == 0:
+                new_games += self._fence(pending)
             if max_steps is not None and steps >= max_steps:
                 break
         while in_flight:
             # Every output must still enter the accumulator (per-lane
             # histories grow one move per step).
-            new_games += self._harvest_step(*in_flight.popleft())
+            new_games += self._harvest_step(*in_flight.popleft(), pending)
+        if self.multihost:
+            # One more fence for the partial window and the drained steps
+            # (JAX fences only a partial window, so a loop that ends on a
+            # fence leaves its drained games out of the global count). It
+            # depends on nothing but the lockstep loop, so every rank joins.
+            new_games += self._fence(pending)
         return new_games
 
     def _harvest_step(self, out: selfplay_lib.StepOutput,
-                      copied: Optional[torch.cuda.Event]) -> int:
+                      copied: Optional[torch.cuda.Event], pending: list) -> int:
         """Host-side processing of one self-play step's output: accumulate
         per-lane histories, fold finished games into replay / resign
-        controller / CSV / SGF. Returns the new-game count."""
+        controller / CSV / SGF. Returns the new-game count; data parallel,
+        it counts into ``pending`` for the next fence and returns 0."""
         cfg = self.cfg
         if copied is not None:
             copied.synchronize()
@@ -335,7 +450,15 @@ class Trainer:
         for game in finished:
             self.played_games += 1
             self.replay.add_game(game.states, game.pi_probs, game.values)
-            self.resign_controller.on_game(game.stats, self.replay.num_games_added)
+            if self.multihost:
+                pending[0] += 1
+                pending[1] += int(game.stats["is_marked_for_resign"])
+                pending[2] += int(game.stats["is_could_won"])
+                pending[3] += game.stats["game_length"]
+            else:
+                self.global_games_added += 1
+                self.global_samples_added += game.stats["game_length"]
+                self.resign_controller.on_game(game.stats, self.replay.num_games_added)
 
             row = {
                 "datetime": get_time_stamp(),
@@ -375,7 +498,24 @@ class Trainer:
                 # lockstep step, hopping over the exact multiple.
                 self._last_replay_save = self.replay.num_games_added
                 self.replay.save(self._replay_path)
-        return len(finished)
+        return 0 if self.multihost else len(finished)
+
+    def _fence(self, pending: list) -> int:
+        """One fence: sums ``pending`` (finished, resign-marked,
+        could-have-won games, samples) across ranks and zeroes it, feeds the
+        global counts to rank 0's resignation controller and broadcasts its
+        threshold back. Returns the global finished-game delta."""
+        games, marked, could_won, samples = (int(x) for x in multihost.global_sum(pending))
+        pending[:] = [0] * len(pending)
+        before = self.global_games_added
+        self.global_games_added += games
+        self.global_samples_added += samples
+        if self.is_host0:
+            self.resign_controller.on_games_global(marked, could_won, before,
+                                                   self.global_games_added)
+        self.resign_controller.threshold = multihost.broadcast_from_host0(
+            self.resign_controller.threshold)
+        return games
 
     def _save_sgf(self, game: selfplay_lib.FinishedGame) -> None:
         content = sgf_lib.make_sgf(
@@ -388,28 +528,39 @@ class Trainer:
         )
         path = os.path.join(
             self.cfg.run.save_sgf_dir,
-            f"actor0_{get_time_stamp(True)}_{self.played_games}.sgf",
+            f"actor{self.rank}_{get_time_stamp(True)}_{self.played_games}.sgf",
         )
         with open(path, "w") as f:
             f.write(content)
 
     # ------------------------------------------------------------------
+    def _train_once(self) -> Optional[learner_lib.TrainMetrics]:
+        """One SGD step on ``local_batch_size`` replay rows, or None when
+        the replay (any rank's, data parallel) is too small to sample."""
+        batch = self.replay.sample(self.local_batch_size)
+        # Collective control flow: every rank trains only if all can sample.
+        if multihost.global_game_count(int(batch is not None)) < self.world:
+            batch = None
+        if batch is None:
+            return None
+        states, pis, values = (torch.from_numpy(x).to(self.device)
+                               for x in (batch.state, batch.pi_prob, batch.value))
+        metrics = self.train_step(self.train_state, states, pis, values,
+                                  random_transform_id(self.aug_generator))
+        self.training_steps += 1
+        return metrics
+
     def train_generation(self) -> None:
         """Runs ``ckpt_interval`` SGD steps, checkpoints, and refreshes the
         self-play net."""
         cfg = self.cfg
         target = self.training_steps + cfg.train.ckpt_interval
         while self.training_steps < target:
-            batch = self.replay.sample(cfg.train.batch_size)
-            if batch is None:
+            metrics = self._train_once()
+            if metrics is None:
                 self.logger.warning("replay too small to sample; skipping update")
                 break
-            states, pis, values = (torch.from_numpy(x).to(self.device)
-                                   for x in (batch.state, batch.pi_prob, batch.value))
-            metrics = self.train_step(self.train_state, states, pis, values,
-                                      random_transform_id(self.aug_generator))
-            self.training_steps += 1
-            if (
+            if self.is_host0 and (
                 self.training_steps % cfg.train.log_interval == 0
                 or self.training_steps % cfg.train.ckpt_interval == 0
             ):
@@ -419,13 +570,15 @@ class Trainer:
                     "policy_loss": float(metrics.policy_loss),
                     "value_loss": float(metrics.value_loss),
                     "learning_rate": metrics.learning_rate,
-                    "total_games": self.replay.num_games_added,
-                    "total_samples": self.replay.num_samples_added,
+                    "total_games": self.global_games_added,
+                    "total_samples": self.global_samples_added,
                 })
 
-        self.latest_ckpt_path = ckpt_lib.save_checkpoint(
-            cfg.run.ckpt_dir, self.train_state, self.training_steps
-        )
+        self.latest_ckpt_path = ckpt_lib.checkpoint_path(cfg.run.ckpt_dir,
+                                                         self.training_steps)
+        if self.is_host0:
+            ckpt_lib.save_checkpoint(cfg.run.ckpt_dir, self.train_state, self.training_steps)
+        multihost.barrier()  # the checkpoint is on disk before any rank goes on
         self._refresh_play_net()
         if cfg.train.drop_straddling_games:
             # Games in flight at the weight switch are discarded when they
@@ -434,6 +587,34 @@ class Trainer:
         self.logger.info(
             f"Checkpoint for step {self.training_steps} at {self.latest_ckpt_path}"
         )
+
+    # ------------------------------------------------------------------
+    def profile(self, num_steps: int = 3, out_dir: Optional[str] = None) -> str:
+        """Traces ``num_steps`` self-play steps (harvest included) and one
+        train step with ``torch.profiler`` (CPU activities, and CUDA's on
+        the card) under ``record_function`` ranges ``selfplay`` and
+        ``train_step``; writes a Chrome trace ``trace_rank{r}.json`` to
+        ``out_dir`` (default ``logs_dir/profile``) and returns its path.
+        Data parallel, every rank calls it together (fences, train step)."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        out_dir = out_dir or os.path.join(self.cfg.run.logs_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            with record_function("selfplay"):
+                self.selfplay_until(math.inf, max_steps=num_steps)
+            with record_function("train_step"):
+                if self._train_once() is None:
+                    self.logger.warning("replay too small to sample; no train step traced")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        path = os.path.join(out_dir, f"trace_rank{self.rank}.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
+        return path
 
     def _games_at_last_ckpt(self) -> Optional[int]:
         """total_games at the last training.csv row whose step is at or
@@ -456,10 +637,13 @@ class Trainer:
         pro-game metrics when ``run.eval_games_dir`` exists (its dataset
         cached as an npz in ``run.ckpt_dir``). A resumed run continues the
         Elo curve from the last ``evaluation.csv`` row and plays its first
-        new checkpoint against the resumed weights."""
+        new checkpoint against the resumed weights. Data parallel, only rank
+        0 has an evaluator: it plays from its resident weights."""
         from alpha_zero_tpu_torch.eval.dataset import build_eval_dataset
         from alpha_zero_tpu_torch.eval.evaluator import Evaluator
 
+        if not self.is_host0:
+            return
         cfg = self.cfg
         dataset = None
         if cfg.run.eval_games_dir and os.path.exists(cfg.run.eval_games_dir):
@@ -581,20 +765,23 @@ class Trainer:
         if cfg.run.eval_async and self.evaluator is not None:
             self.start_async_evaluator()
         # The first generation is the min_games warm-up, which counts the
-        # replay's existing games. A run resumed from a checkpoint is past
-        # warm-up: it collects games_per_ckpt new games before training.
+        # replay's existing games (every rank's). A run resumed from a
+        # checkpoint is past warm-up: it collects games_per_ckpt new games
+        # before training.
         first = self.training_steps == 0
         resumed = not first
         while self.training_steps < cfg.train.max_training_steps:
             target = cfg.train.min_games if first else cfg.train.games_per_ckpt
-            already = self.replay.num_games_added if first else 0
+            already = self.global_games_added if first else 0
             if resumed:
                 # Crash-resume mid-generation: credit the games collected
                 # since the last checkpoint (training.csv logs total_games
-                # per step; the restored replay carries num_games_added).
-                at_ckpt = self._games_at_last_ckpt()
+                # per step; the restored replays carry num_games_added).
+                # Rank 0 reads training.csv and the others take its count.
+                at_ckpt = self._games_at_last_ckpt() if self.is_host0 else None
                 if at_ckpt is not None:
-                    already = max(0, self.replay.num_games_added - at_ckpt)
+                    already = max(0, self.global_games_added - at_ckpt)
+                already = int(multihost.broadcast_from_host0(already))
                 resumed = False
             self.selfplay_until(max(0, target - already))
             first = False

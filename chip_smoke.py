@@ -44,6 +44,18 @@ card against its CPU path on small inputs, then drives the port's paths:
   the results equal to ``log.csv``, 199 K1 and 398 K2 launches a ply, and
   K1 and K2 bit-equal to their plain versions on searched trees at B=1
   and B=2, timed at B=1 and B=64.
+- [10] data parallel: ``cli.train.main`` with ``parallel.dp=2`` on the one
+  card (two ranks on ``cuda:0`` over gloo, spawned by ``cli.train``; their
+  instrument is ``dp_rank_checks``), go9 full width, 512 games and 512
+  train rows a rank, ``env.max_steps=24``, one generation of 10 steps,
+  ``--no-eval``: 120 K1 and 240 K2 launches in every move of each rank,
+  both ranks leaving self-play on the same move with the same global game
+  count, the ranks' train states and self-play nets bit-equal, the
+  checkpoint restored bit-equal here, the first DP step's losses and weight
+  update against one step in this process on both ranks' rows, finite
+  losses; seconds of self-play, training and fences, ms per DP train step,
+  peak memory per rank. [8] also calls ``Trainer.profile(num_steps=1)``,
+  whose trace must name both kernels.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -55,10 +67,12 @@ calls with the host's dispatch
 the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
-kernels' launch counts are set to 0 before each of [5], [7] and [8] and
-read after it; ``launches`` sums them, ``launches_by_path`` splits them
-(``go9_training`` is [8]'s self-play, ``go9_eval`` its evaluation plies
-and [9]'s eval game, ``go9_match`` the ``cli.match`` run).
+kernels' launch counts are set to 0 before each of [5], [7], [8], [9] and
+[10] (in each of [10]'s ranks) and read after it; ``launches`` sums them,
+``launches_by_path`` splits them (``go9_training`` is [8]'s self-play and
+profiled move, ``go9_eval`` its evaluation plies and [9]'s eval game,
+``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks, each
+counted in its own process and carried back).
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -83,6 +97,25 @@ TIMED_MOVES = 3
 GOMOKU_TIMED_MOVES = 2
 TRAIN_STEPS = 20
 MATCH_GAMES = 64
+# [10]'s first DP step (bf16 compute, two ranks of 512 rows) against one
+# step of the same net on the 1024 rows in one process: cuDNN picks its
+# convolution algorithms per batch size, so bf16 activations may round
+# differently (one bf16 ulp, 2^-8 relative), and the BN moments are summed
+# across ranks instead of taken over one tensor. Averaged over 1024 rows
+# that moves the policy loss (~4.4) and the value loss (~1) by far less
+# than 1e-2, which still catches a wrong reduction (local BN moments or an
+# unaveraged gradient move them by more).
+DP_LOSS_ATOL = 1e-2
+# The same step's weight update (every parameter) is held to the float32
+# step's on the 1024 rows: its distance from it (L2, relative to the
+# float32 update) at most DP_UPDATE_FACTOR times the single-process bf16
+# step's. bf16 gradients through Flax's ill-conditioned BatchNorm variance
+# are far from float32 ones (tests/test_torch_learner.py: 17-41% per tensor
+# after three steps), and two ranks round differently from one process, so
+# no fixed bound on DP vs single bf16 holds; a summed gradient left
+# undivided, or one rank's gradient alone, lands ~100% or tens of percent
+# off the float32 update, well past twice the bf16 step's own error.
+DP_UPDATE_FACTOR = 2.0
 EVAL_HEADER = ["datetime", "training_steps", "game_length", "game_result", "num_passes",
                "black_elo_rating", "white_elo_rating", "eval_games", "latest_win_rate",
                "value_mse_error", "policy_entropy", "policy_top_1_accuracy",
@@ -449,6 +482,18 @@ def train_path(card, dev) -> dict:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     peak = torch.cuda.max_memory_allocated() / 2**30
 
+    # Trainer.profile: one self-play move and one train step under
+    # torch.profiler; the Chrome trace must name both kernels.
+    t0 = time.time()
+    trace = trainer.profile(num_steps=1)
+    with open(trace, "rb") as f:
+        trace_bytes = f.read()
+    missing = [k for k in (b"select_leaf_kernel", b"write_rows_kernel") if k not in trace_bytes]
+    if missing:
+        raise SystemExit(f"[8] the profile trace {trace} names no {missing}")
+    profile_s = time.time() - t0
+    os.remove(trace)
+
     gens = [{"selfplay_s": sp_s, "train_s": gen_s - ck_s, "checkpoint_s": ck_s}
             for sp_s, gen_s, ck_s in zip(seen["selfplay_s"], seen["generation_s"],
                                          seen["checkpoint_s"])]
@@ -458,6 +503,7 @@ def train_path(card, dev) -> dict:
            "train_step_ms": step_ms, "train_samples_per_s": BATCH * 1e3 / step_ms,
            "train_step_flops": step_flops, "train_step_bound_ms": bound_ms,
            "generations": gens, "wall_s": wall, "peak_memory_gib": peak,
+           "profile_s": profile_s, "profile_trace_mb": len(trace_bytes) / 1e6,
            "losses": losses, "eval_s": seen["eval_s"],
            "eval_plies": len(seen["eval_plies"]),
            "eval_ply_s": sum(t for _, _, t in seen["eval_plies"]) / len(seen["eval_plies"]),
@@ -476,7 +522,9 @@ def train_path(card, dev) -> dict:
           + f"; {wall:.1f} s in cli.train; peak memory {peak:.2f} GiB", flush=True)
     print(f"[8] checkpoints training_steps_10/20 restored bit-equal; self-play net == "
           f"master weights (bf16, BatchNorm float32) after each generation; resumed "
-          f"Trainer's next step bit-equal; losses {losses}", flush=True)
+          f"Trainer's next step bit-equal; losses {losses}; Trainer.profile(num_steps=1) "
+          f"wrote a {len(trace_bytes) / 1e6:.1f} MB Chrome trace naming select_leaf_kernel "
+          f"and write_rows_kernel in {profile_s:.1f} s", flush=True)
     print(f"[8] evaluator on {card}: {len(eval_rows)} evaluation.csv rows, Elo replayed "
           f"equal, pro metrics over {len(dataset)} positions (dataset on the card == CPU); "
           f"{out['eval_plies']} evaluation plies of {cfg.search.num_simulations - 1} K1 and "
@@ -485,6 +533,253 @@ def train_path(card, dev) -> dict:
           f"{out['eval_ply_s']:.3f} s per ply (B=1)", flush=True)
     print("[8] " + json.dumps(out), flush=True)
     return out, ckpt_dir
+
+
+def dp_rank_checks(trainer) -> None:
+    """[10]'s instrument in each rank (``cli.train``'s ``prepare`` hook, so
+    it runs in the spawned process): K1/K2 launches of every self-play move
+    (the counts set to 0 just before the run), each exit from self-play,
+    seconds of self-play, of the fences and of each train generation, the
+    first DP step's local batch and global losses, then, after the run, ms
+    per DP train step (CUDA events, on a copy of the state), peak memory,
+    the final train state and self-play net. Writes them under
+    ``logs_dir/rank{r}``; raises if a move's launches are off."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.ops.symmetry import random_transform_id
+    from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
+    from alpha_zero_tpu_torch.utils.device import time_ms
+
+    # The parent's float32 settings, for the parity step it computes.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    out_dir = os.path.join(trainer.cfg.run.logs_dir, f"rank{trainer.rank}")
+    os.makedirs(out_dir, exist_ok=True)
+    rec = {"rank": trainer.rank, "world": trainer.world, "device": str(trainer.device),
+           "games_a_step": int(trainer.sp_state.games.done.shape[0]),
+           "local_batch": trainer.local_batch_size, "moves": [], "exits": [],
+           "selfplay_s": [], "generation_s": [], "fence_s": 0.0, "fences": 0}
+    if trainer.is_host0:
+        ckpt_lib.save_checkpoint(os.path.join(out_dir, "init"), trainer.train_state, 0)
+    step_fn, until, fence = trainer.selfplay_step, trainer.selfplay_until, trainer._fence
+    train_step, generation, run = trainer.train_step, trainer.train_generation, trainer.run
+
+    def counted_step(*args, **kwargs):
+        s0, w0 = select.launches, writer.launches
+        out = step_fn(*args, **kwargs)
+        rec["moves"].append((select.launches - s0, writer.launches - w0))
+        return out
+
+    def timed_until(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = until(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["selfplay_s"].append(time.perf_counter() - t0)
+        rec["exits"].append([len(rec["moves"]), n, trainer.global_games_added])
+        return n
+
+    def timed_fence(pending):
+        t0 = time.perf_counter()
+        out = fence(pending)
+        rec["fence_s"] += time.perf_counter() - t0
+        rec["fences"] += 1
+        return out
+
+    def first_step_saved(state, states, pis, values, tid):
+        metrics = train_step(state, states, pis, values, tid)
+        if "first_step" not in rec:
+            np.savez(os.path.join(out_dir, "first_step.npz"), states=states.cpu().numpy(),
+                     pis=pis.cpu().numpy(), values=values.cpu().numpy(), tid=tid)
+            rec["first_step"] = [float(metrics.policy_loss), float(metrics.value_loss)]
+            ckpt_lib.save_checkpoint(os.path.join(out_dir, "step1"), state, 1)
+        return metrics
+
+    def timed_generation():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generation()
+        torch.cuda.synchronize()
+        rec["generation_s"].append(time.perf_counter() - t0)
+
+    def checked_run(*args, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        select.launches = writer.launches = 0
+        t0 = time.perf_counter()
+        run(*args, **kwargs)
+        rec["run_s"] = time.perf_counter() - t0
+        rec["launches"] = (select.launches, writer.launches)
+        rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        loop_len = trainer.cfg.search.max_new_sims
+        if not rec["moves"] or set(rec["moves"]) != {(loop_len, 2 * loop_len)}:
+            raise SystemExit(f"[10] rank {trainer.rank}: launches per self-play move "
+                             f"{sorted(set(rec['moves']))}, expected ({loop_len}, "
+                             f"{2 * loop_len})")
+        ckpt_lib.save_checkpoint(out_dir, trainer.train_state, trainer.training_steps)
+        torch.save(trainer.play_net.state_dict(), os.path.join(out_dir, "play_net.pt"))
+        # ms per DP train step: every rank steps together on its own rows.
+        batch = trainer.replay.sample(trainer.local_batch_size)
+        inputs = tuple(torch.from_numpy(x).to(trainer.device)
+                       for x in (batch.state, batch.pi_prob, batch.value))
+        timing_state = copy.deepcopy(trainer.train_state)
+        tid = random_transform_id(torch.Generator().manual_seed(0))
+        rec["train_step_ms"] = time_ms(lambda: train_step(timing_state, *inputs, tid), 10,
+                                       trainer.device)
+        with open(out_dir + ".json", "w") as f:
+            json.dump(rec, f)
+
+    trainer.selfplay_step, trainer.selfplay_until, trainer._fence = (
+        counted_step, timed_until, timed_fence)
+    trainer.train_step, trainer.train_generation, trainer.run = (
+        first_step_saved, timed_generation, checked_run)
+
+
+def dp_path(card, dev) -> dict:
+    """[10]: ``cli.train.main`` with ``parallel.dp=2`` on the one card: two
+    gloo ranks on ``cuda:0`` at go9 full width (bf16, 200 sims, reuse,
+    ``max_new_sims=120``; ``selfplay_batch_size=1024``, 512 games a rank;
+    ``train.batch_size=1024``, 512 rows a rank), ``env.max_steps=24``, one
+    generation of 10 steps, ``--no-eval``. Each rank is checked by
+    ``dp_rank_checks``; here, across them: the same exits from self-play
+    with at least ``min_games`` games, bit-equal train states and self-play
+    nets, the checkpoint restored bit-equal, the first DP step's losses
+    against one step of this process on the two ranks' rows
+    (``DP_LOSS_ATOL``) and its weight update against the float32 step's
+    (``DP_UPDATE_FACTOR``), finite losses. Returns the numbers and each
+    rank's (K1, K2) launches."""
+    import csv
+    import math
+
+    import numpy as np
+    import torch
+
+    from alpha_zero_tpu_torch.cli import train as cli_train
+    from alpha_zero_tpu_torch.cli.common import resolve_config
+    from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
+    from alpha_zero_tpu_torch.training import learner
+
+    run_dir = os.path.join(HERE, "build", "chip_smoke_dp")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
+    sets = ["parallel.dp=2", f"parallel.selfplay_batch_size={BATCH}",
+            f"train.batch_size={BATCH}", "env.max_steps=24", f"train.min_games={BATCH}",
+            f"train.games_per_ckpt={BATCH}", "train.ckpt_interval=10",
+            "train.max_training_steps=10", f"run.ckpt_dir={ckpt_dir}",
+            f"run.logs_dir={logs_dir}"]
+    cfg = resolve_config("go9", sets)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cli_train.main(["--config", "go9", "--device", str(dev), "--no-eval"]
+                   + [x for v in sets for x in ("--set", v)], prepare=dp_rank_checks)
+    wall = time.time() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(logs_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0, r1 = ranks
+    if [x["games_a_step"] for x in ranks] != [BATCH // 2] * 2 or r0["world"] != 2:
+        raise SystemExit(f"[10] games a rank {[x['games_a_step'] for x in ranks]}")
+    if r0["exits"] != r1["exits"] or r0["exits"][0][1] < BATCH:
+        raise SystemExit(f"[10] exits from self-play differ or fall short: "
+                         f"{r0['exits']} / {r1['exits']}")
+
+    def fresh_state():
+        net = build_network(cfg.env, cfg.network, device=dev, dtype="float32")
+        return learner.create_train_state(net, cfg.train)
+
+    final = [ckpt_lib.restore_checkpoint(
+        os.path.join(logs_dir, f"rank{r}", "training_steps_10"), fresh_state()) for r in (0, 1)]
+    if not ckpt_lib.states_equal(final[0], final[1]):
+        raise SystemExit("[10] the ranks' train states differ after training")
+    nets = [torch.load(os.path.join(logs_dir, f"rank{r}", "play_net.pt"), map_location=dev)
+            for r in (0, 1)]
+    if nets[0].keys() != nets[1].keys() or not all(
+            torch.equal(nets[0][k], nets[1][k]) for k in nets[0]):
+        raise SystemExit("[10] the ranks' bf16 self-play nets differ")
+    restored = ckpt_lib.restore_checkpoint(os.path.join(ckpt_dir, "training_steps_10"),
+                                           fresh_state())
+    if not ckpt_lib.states_equal(restored, final[0]):
+        raise SystemExit("[10] training_steps_10 restores a state other than the ranks'")
+
+    # The first DP step against one step in this process on both ranks' rows.
+    batches = [np.load(os.path.join(logs_dir, f"rank{r}", "first_step.npz")) for r in (0, 1)]
+    if int(batches[0]["tid"]) != int(batches[1]["tid"]) or r0["first_step"] != r1["first_step"]:
+        raise SystemExit("[10] the ranks' first steps differ in transform or losses")
+    inputs = tuple(torch.from_numpy(np.concatenate([b[k] for b in batches])).to(dev)
+                   for k in ("states", "pis", "values"))
+
+    def params(state):
+        return torch.cat([p.detach().flatten().clone() for p in state.net.parameters()])
+
+    def one_process_step(dtype):
+        state = ckpt_lib.restore_checkpoint(
+            os.path.join(logs_dir, "rank0", "init", "training_steps_0"), fresh_state())
+        m = learner.make_train_step(dtype, cfg.train.argument_data)(
+            state, *inputs, int(batches[0]["tid"]))
+        return params(state), [float(m.policy_loss), float(m.value_loss)]
+
+    p_bf16, single = one_process_step(cfg.network.inference_dtype)
+    p_f32, _ = one_process_step("float32")
+    p0 = params(ckpt_lib.restore_checkpoint(
+        os.path.join(logs_dir, "rank0", "init", "training_steps_0"), fresh_state()))
+    p_dp = params(ckpt_lib.restore_checkpoint(
+        os.path.join(logs_dir, "rank0", "step1", "training_steps_1"), fresh_state()))
+    loss_err = max(abs(a - b) for a, b in zip(single, r0["first_step"]))
+    f32_norm = (p_f32 - p0).norm()
+    update_err = {"dp_vs_f32": float((p_dp - p_f32).norm() / f32_norm),
+                  "bf16_vs_f32": float((p_bf16 - p_f32).norm() / f32_norm),
+                  "dp_vs_bf16": float((p_dp - p_bf16).norm() / (p_bf16 - p0).norm())}
+    if (loss_err > DP_LOSS_ATOL
+            or update_err["dp_vs_f32"] > DP_UPDATE_FACTOR * update_err["bf16_vs_f32"]):
+        raise SystemExit(f"[10] first DP step vs one process on both ranks' rows: losses "
+                         f"{r0['first_step']} vs {single} (err {loss_err}, limit "
+                         f"{DP_LOSS_ATOL}); weight update's relative errors {update_err} "
+                         f"(DP vs float32 at most {DP_UPDATE_FACTOR} x bf16 vs float32)")
+    with open(os.path.join(logs_dir, "training.csv")) as f:
+        losses = [(float(r["policy_loss"]), float(r["value_loss"])) for r in csv.DictReader(f)]
+    if not losses or not all(math.isfinite(x) for pair in losses for x in pair):
+        raise SystemExit(f"[10] losses not finite: {losses}")
+
+    out = {"config": "go9", "reduced": {"env.max_steps": 24, "training_steps": 10},
+           "ranks": 2, "backend": "gloo", "selfplay_batch": BATCH, "train_batch": BATCH,
+           "selfplay_moves": len(r0["moves"]), "exits": r0["exits"],
+           "selfplay_s": [x["selfplay_s"] for x in ranks],
+           "train_s": [x["generation_s"] for x in ranks],
+           "fence_s": [x["fence_s"] for x in ranks], "fences": r0["fences"],
+           "train_step_ms": [x["train_step_ms"] for x in ranks],
+           "peak_memory_gib": [x["peak_memory_gib"] for x in ranks],
+           "launches": [x["launches"] for x in ranks], "first_step_losses": r0["first_step"],
+           "single_process_losses": single, "loss_err": loss_err,
+           "update_rel_err": update_err, "losses": losses,
+           "wall_s": wall}
+    loop_len = cfg.search.max_new_sims
+    print(f"[10] go9 dp=2 via cli.train on {card}: 2 gloo ranks on {r0['device']} "
+          f"(10 x 128 bf16, {BATCH // 2} games and {BATCH // 2} train rows a rank; "
+          f"env.max_steps=24); {len(r0['moves'])} self-play moves a rank ({loop_len} K1 and "
+          f"{2 * loop_len} K2 launches each), both ranks left self-play on move "
+          f"{r0['exits'][0][0]} with {r0['exits'][0][2]} games; self-play "
+          + " / ".join(f"{x['selfplay_s'][0]:.2f}" for x in ranks) + " s, train generation "
+          + " / ".join(f"{x['generation_s'][0]:.3f}" for x in ranks) + " s, fences "
+          + " / ".join(f"{x['fence_s']:.4f}" for x in ranks) + f" s over {r0['fences']}; "
+          + " / ".join(f"{x['train_step_ms']:.3f}" for x in ranks) + " ms per DP train step; "
+          "peak memory " + " / ".join(f"{x['peak_memory_gib']:.2f}" for x in ranks)
+          + f" GiB; {wall:.1f} s in cli.train", flush=True)
+    print(f"[10] ranks bit-equal after training (train state and bf16 self-play net), "
+          f"training_steps_10 restored bit-equal here; first DP step losses "
+          f"{r0['first_step']} vs one process on both ranks' rows {single} (max err "
+          f"{loss_err:.2e} <= {DP_LOSS_ATOL}); its weight update {update_err['dp_vs_f32']:.4f} "
+          f"off the float32 step's (relative), one process's bf16 step "
+          f"{update_err['bf16_vs_f32']:.4f} off, DP vs one process bf16 "
+          f"{update_err['dp_vs_bf16']:.4f}; losses {losses}", flush=True)
+    print("[10] " + json.dumps(out), flush=True)
+    shutil.rmtree(ckpt_dir)
+    return out, [tuple(x["launches"]) for x in ranks]
 
 
 def replay_game(label, moves, result, dev, max_steps=24):
@@ -945,6 +1240,11 @@ def main() -> None:
     launches["go9_eval"] = (eval_k1 + game_launches[0], eval_k2 + game_launches[1])
     launches["go9_match"] = match_launches
 
+    # --- 10. Data parallel: cli.train with parallel.dp=2, two ranks on the card.
+    select.launches = writer.launches = 0
+    dp, rank_launches = dp_path(card, dev)
+    launches["go9_dp2"] = tuple(sum(x) for x in zip(*rank_launches))
+
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with
     # the expand set and the single f32 array (vs index_copy_) beside it.
@@ -955,6 +1255,7 @@ def main() -> None:
         "replaces": "tools/dma_probe.py:44",
         "launches": sum(w for _, w in launches.values()),
         "launches_by_path": {k: w for k, (_, w) in launches.items()},
+        "launches_by_rank_go9_dp2": [w for _, w in rank_launches],
         "probe_launches": scatter_launches["write_rows"],
         "max_abs_err": scatter_err["scatter_rows"],
         "ms": mat["graph_ms"],
@@ -996,6 +1297,7 @@ def main() -> None:
         "replaces": "alpha_zero_tpu/ops/tree_kernels.py:58",
         "launches": sum(k1 for k1, _ in launches.values()),
         "launches_by_path": {k: k1 for k, (k1, _) in launches.items()},
+        "launches_by_rank_go9_dp2": [k1 for k1, _ in rank_launches],
         "max_abs_err": max_err,
         "ms": times["ms"],
         "cold_ms": times["cold_ms"],

@@ -41,6 +41,8 @@ def _imports(path):
 # The evaluator path's modules, each a copy or port of its JAX namesake.
 EVAL_PATH = ("eval/__init__.py", "eval/elo.py", "eval/dataset.py", "eval/match.py",
              "eval/evaluator.py", "envs/host.py", "cli/play.py", "cli/match.py")
+# The data-parallel path's modules.
+PARALLEL_PATH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py")
 
 
 def test_port_sources_import_nothing_of_jax():
@@ -49,7 +51,7 @@ def test_port_sources_import_nothing_of_jax():
                  if name.split(".")[0] in BANNED]
     assert not offenders, offenders
     assert len(_port_files()) > 10
-    assert {PORT / p for p in EVAL_PATH} <= set(_port_files())
+    assert {PORT / p for p in EVAL_PATH + PARALLEL_PATH} <= set(_port_files())
 
 
 def test_kernel_layer_imports_nothing_above_it():
@@ -81,6 +83,7 @@ def test_entry_points_default_to_cuda():
     from alpha_zero_tpu_torch import config as config_lib
     from alpha_zero_tpu_torch.cli import train as cli_train
     from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.parallel import mesh
     from alpha_zero_tpu_torch.training import pipeline, selfplay
     from alpha_zero_tpu_torch.training.checkpoint import train_state_from_flax
     from alpha_zero_tpu_torch.training.pipeline import build_engine
@@ -104,6 +107,11 @@ def test_entry_points_default_to_cuda():
         cli_train.main(["--config", "go9", "--no-eval"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_state_from_flax({}, cfg.env, cfg.network, cfg.train)
+    # A data-parallel launch checks the device before it starts a rank.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_train.main(["--config", "go9", "--no-eval", "--set", "parallel.dp=2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.rank_device("cuda", 0, 1)
 
 
 def test_evaluator_path_entry_points_default_to_cuda(tmp_path):

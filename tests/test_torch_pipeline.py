@@ -235,10 +235,16 @@ def test_resign_threshold_continuity_across_resume(tmp_path):
 
 
 def test_multi_device_training_is_not_ported(tmp_path):
+    """The model axis is not ported (ROADMAP A10b); data parallelism is
+    (``tests/test_torch_multihost.py``), but only across ranks of a process
+    group: a Trainer built in one process for dp=2 or a coordinator raises."""
     cfg = micro_config(tmp_path)
-    for parallel in (dict(dp=2), dict(coordinator_address="localhost:1234")):
+    bad = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, mdl=2))
+    with pytest.raises(NotImplementedError, match="not ported yet.*A10b"):
+        pipeline.Trainer(bad, device="cpu")
+    for parallel in (dict(dp=2), dict(coordinator_address="localhost:1234", num_processes=2)):
         bad = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **parallel))
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(RuntimeError, match="2 data-parallel ranks and the process group has 1"):
             pipeline.Trainer(bad, device="cpu")
 
 
