@@ -13,11 +13,11 @@ function's counterpart is found under the same path:
 - ``training`` — the batched self-play step, the learner, replay,
   checkpoints and the ``Trainer``.
 - ``eval``     — Elo, the pro-game dataset, matches and the evaluator.
-- ``parallel`` — data-parallel training over ``torch.distributed``.
+- ``parallel`` — data- and model-parallel training over
+  ``torch.distributed``, and the multi-rank dry run.
 - ``cli``      — ``python -m alpha_zero_tpu_torch.cli.{train,play,match}``.
 
-Not ported yet: the gui/plot/analysis CLIs and the model axis
-(``parallel.mdl > 1``).
+Not ported yet: the gui/plot/analysis CLIs.
 
 The package imports torch and numpy only — never JAX, Flax or the JAX
 package. Entry points run on ``device="cuda"`` unless the caller asks for

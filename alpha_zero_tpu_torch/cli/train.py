@@ -7,21 +7,23 @@ per-checkpoint evaluator runs unless ``--no-eval``: latest-vs-previous games
 and Elo per checkpoint, plus pro-game metrics when ``run.eval_games_dir``
 is set.
 
-Data parallel, two ways:
+Data and model parallel, two ways:
 
-- ``--set parallel.dp=k`` (k > 1) starts k ranks on this host, which split
-  ``parallel.selfplay_batch_size`` games; rank r runs on
-  ``cuda:{r % cards}``, or on the CPU with ``--device cpu``;
+- ``--set parallel.dp=k --set parallel.mdl=m`` (k * m > 1) starts k * m
+  ranks on this host; rank r runs on ``cuda:{r % cards}``, or on the CPU
+  with ``--device cpu``. The m consecutive ranks of a model group split
+  the wide layers' output channels and play the same games; the k groups
+  split ``parallel.selfplay_batch_size`` games;
 - ``--set parallel.coordinator_address=host:port --set
   parallel.num_processes=n --set parallel.process_id=i`` makes this process
-  rank i of n, with ``selfplay_batch_size`` games of its own: start one on
-  every card of every host, each with its own ``process_id``; rank 0 serves
-  the address.
+  rank i of n (n counts ranks, m of them a model group), and each model
+  group plays ``selfplay_batch_size`` games of its own, as a JAX host with
+  m chips does: start one on every card of every host, each with its own
+  ``process_id``; rank 0 serves the address.
 
 ``train.batch_size`` is the global batch either way. The ranks talk over
 NCCL when each has a card of its own and over gloo when they share one or
-run on the CPU (``parallel/mesh.py:rank_device``). ``parallel.mdl > 1`` is
-not ported (ROADMAP A10b).
+run on the CPU (``parallel/mesh.py:rank_device``).
 """
 
 from __future__ import annotations
@@ -51,9 +53,10 @@ def _train(cfg, device, evaluate: bool, prepare) -> None:
 
 
 def _rank(rank: int, cfg, device, evaluate: bool, prepare, address: str, world: int) -> None:
-    """One rank: joins the process group at ``address``, trains on its
-    device, leaves the group."""
-    dev = multihost.initialize(address, world, rank, device)
+    """One rank: joins the process group at ``address`` (``world`` ranks,
+    ``parallel.mdl`` a model group), trains on its device, leaves the
+    group."""
+    dev = multihost.initialize(address, world, rank, device, cfg.parallel.mdl)
     try:
         _train(cfg, dev, evaluate, prepare)
     finally:
@@ -74,19 +77,20 @@ def main(argv=None, prepare=None) -> None:
 
     cfg = resolve_config(args.config, args.set)
     par = cfg.parallel
-    mesh_lib.check_mdl(par.mdl)
+    mesh = mesh_lib.make_mesh(
+        par.num_processes if par.coordinator_address else par.dp * par.mdl, par.mdl)
     logger = create_logger(cfg.run.log_level)
     logger.info("config: %s", json.dumps(dataclasses.asdict(cfg), default=str, indent=1))
     evaluate = not args.no_eval
     if par.coordinator_address:
         _rank(par.process_id, cfg, args.device, evaluate, prepare,
               par.coordinator_address, par.num_processes)
-    elif par.dp > 1:
+    elif mesh.world > 1:
         if resolve_device(args.device).type == "cuda":
             _build.build_all()  # once, before the ranks load the kernels
         torch.multiprocessing.spawn(
-            _rank, nprocs=par.dp,
-            args=(cfg, args.device, evaluate, prepare, multihost.local_address(), par.dp))
+            _rank, nprocs=mesh.world,
+            args=(cfg, args.device, evaluate, prepare, multihost.local_address(), mesh.world))
     else:
         _train(cfg, args.device, evaluate, prepare)
 

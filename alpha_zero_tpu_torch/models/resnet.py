@@ -16,6 +16,18 @@ taken in f32.
 Training keeps float32 parameters and computes in the config's dtype under
 ``torch.autocast`` (``training/learner.py``); in train mode the BatchNorm
 layers are Flax's (``BatchNorm``).
+
+The model axis (``parallel.mdl > 1``, a net built with a ``mesh``): every
+conv and dense layer whose output width ``mdl`` divides is column-parallel
+(``ColumnParallelConv2d``, ``ColumnParallelLinear``): the rank holds its
+slice of the output channels (``parallel/mesh.py:shard_spec``, JAX's
+``_param_spec``), computes them from the whole input and all-gathers them
+over its model group. BatchNorm, ReLU, the residual add, the dense biases
+and the layers too narrow to split run replicated on the whole tensor, so
+every tensor JAX keeps replicated is replicated here with the same
+gradient on every rank. ``shard_state_dict`` and ``gather_state_dict``
+move between a rank's slices and the whole layout, which every file and
+``params_from_flax`` keep.
 """
 
 from __future__ import annotations
@@ -25,9 +37,11 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from alpha_zero_tpu_torch.parallel import multihost
+from alpha_zero_tpu_torch.parallel.mesh import Mesh, shard_spec
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
 _BN_EPS = 1e-5       # Flax BatchNorm's default epsilon
@@ -39,18 +53,69 @@ class NetworkOutputs(NamedTuple):
     value: torch.Tensor      # f32[B] in [-1, 1], current player's perspective
 
 
-def _conv(cin: int, cout: int, k: int, pad: int) -> nn.Conv2d:
+class ColumnParallelConv2d(nn.Conv2d):
+    """A bias-free conv of ``cout`` output channels that holds this rank's
+    ``cout / mdl`` of them: it computes them from the whole input (through
+    ``copy_to_model``, whose backward sums the input's gradient over the
+    model group) and returns all ``cout``, gathered in rank order."""
+
+    def __init__(self, cin: int, cout: int, k: int, pad: int, mdl: int) -> None:
+        super().__init__(cin, cout // mdl, k, padding=pad, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = multihost.copy_to_model(x)
+        if self.out_channels == 1:
+            # A one-channel slice (go9's policy conv at mdl=2) runs as two,
+            # the second zero: a one-row product takes another kernel than
+            # the whole layer's (a matrix-vector product on the CPU), whose
+            # sums round differently. Each row of a wider product is summed
+            # alike whatever the others hold.
+            weight = torch.cat([self.weight, torch.zeros_like(self.weight)])
+            y = self._conv_forward(x, weight, None)[:, :1]
+        else:
+            y = super().forward(x)
+        return multihost.all_gather_channels(y, 1)
+
+
+class ColumnParallelLinear(nn.Linear):
+    """A dense layer of ``fout`` outputs that holds this rank's ``fout / mdl``
+    rows of the weight and the whole bias, replicated as JAX keeps it. The
+    rank adds its slice of the bias inside its ``F.linear``, as the whole
+    layer adds it, so both round alike; the slice goes through
+    ``copy_to_model`` too, which gives every rank the whole bias gradient."""
+
+    def __init__(self, fin: int, fout: int, mdl: int) -> None:
+        super().__init__(fin, fout // mdl, bias=False)
+        self.bias = nn.Parameter(torch.zeros(fout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lo = multihost.mdl_index() * self.out_features
+        bias = multihost.copy_to_model(self.bias)[lo:lo + self.out_features]
+        y = F.linear(multihost.copy_to_model(x), self.weight, bias)
+        return multihost.all_gather_channels(y, -1)
+
+
+def _conv(cin: int, cout: int, k: int, pad: int, mdl: int = 1) -> nn.Conv2d:
+    if shard_spec("weight", (cout, cin, k, k), mdl) is not None:
+        return ColumnParallelConv2d(cin, cout, k, pad, mdl)
     return nn.Conv2d(cin, cout, k, padding=pad, bias=False)
+
+
+def _linear(fin: int, fout: int, mdl: int = 1) -> nn.Linear:
+    if shard_spec("weight", (fout, fin), mdl) is not None:
+        return ColumnParallelLinear(fin, fout, mdl)
+    return nn.Linear(fin, fout)
 
 
 def batch_moments(xf: torch.Tensor):
     """Flax's train-mode moments of ``xf`` ``[B, C, H, W]`` per channel: the
     mean and the biased variance E[x^2] - E[x]^2, clipped at 0, over the
-    whole batch. When a process group of more than one rank is up, the
-    batch is the global one: Σx, Σx² and the count are summed across ranks
-    in one ``all_reduce`` that carries autograd (``multihost.all_reduce_sum``),
-    as Flax computes them on the dp-sharded array."""
-    if multihost.world_size() == 1:
+    whole batch. With more than one model group, the batch is the global
+    one: Σx, Σx² and the count are summed over the data group in one
+    ``all_reduce`` that carries autograd (``multihost.all_reduce_sum``), as
+    Flax computes them on the dp-sharded array. The ranks of a model group
+    hold the same rows, so each sums them once."""
+    if multihost.mesh().dp == 1:
         mean = xf.mean(dim=(0, 2, 3))
         return mean, torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
     c = xf.shape[1]
@@ -96,11 +161,11 @@ def _bn(c: int) -> BatchNorm:
 class ResNetBlock(nn.Module):
     """Basic residual block."""
 
-    def __init__(self, num_filters: int) -> None:
+    def __init__(self, num_filters: int, mdl: int = 1) -> None:
         super().__init__()
-        self.conv1 = _conv(num_filters, num_filters, 3, 1)
+        self.conv1 = _conv(num_filters, num_filters, 3, 1, mdl)
         self.bn1 = _bn(num_filters)
-        self.conv2 = _conv(num_filters, num_filters, 3, 1)
+        self.conv2 = _conv(num_filters, num_filters, 3, 1, mdl)
         self.bn2 = _bn(num_filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,25 +175,33 @@ class ResNetBlock(nn.Module):
 
 
 class AlphaZeroNet(nn.Module):
-    """Policy + value network over stacked board planes."""
+    """Policy + value network over stacked board planes; with ``mdl > 1``
+    this rank's part of it (the layers ``shard_spec`` shards are
+    column-parallel over the model group)."""
 
     def __init__(self, num_actions: int, board_size: int, num_planes: int,
                  num_res_blocks: int = 10, num_filters: int = 128,
-                 num_fc_units: int = 128, gomoku: bool = False) -> None:
+                 num_fc_units: int = 128, gomoku: bool = False, mdl: int = 1) -> None:
         super().__init__()
         pad = 3 if gomoku else 1  # padding-3 stem fixes Gomoku edge blindness
         side = board_size + 2 * pad - 2  # spatial size after the stem
-        self.stem_conv = _conv(num_planes, num_filters, 3, pad)
+        self.stem_conv = _conv(num_planes, num_filters, 3, pad, mdl)
         self.stem_bn = _bn(num_filters)
         self.blocks = nn.ModuleList(
-            ResNetBlock(num_filters) for _ in range(num_res_blocks))
-        self.policy_conv = _conv(num_filters, 2, 1, 0)
+            ResNetBlock(num_filters, mdl) for _ in range(num_res_blocks))
+        self.policy_conv = _conv(num_filters, 2, 1, 0, mdl)
         self.policy_bn = _bn(2)
-        self.policy_fc = nn.Linear(2 * side * side, num_actions)
-        self.value_conv = _conv(num_filters, 1, 1, 0)
+        self.policy_fc = _linear(2 * side * side, num_actions, mdl)
+        self.value_conv = _conv(num_filters, 1, 1, 0, mdl)
         self.value_bn = _bn(1)
-        self.value_fc1 = nn.Linear(side * side, num_fc_units)
-        self.value_fc2 = nn.Linear(num_fc_units, 1)
+        self.value_fc1 = _linear(side * side, num_fc_units, mdl)
+        self.value_fc2 = _linear(num_fc_units, 1, mdl)
+
+    def sharded_names(self) -> set:
+        """The ``state_dict`` names this rank holds a slice of: the
+        column-parallel layers' weights."""
+        return {f"{name}.weight" for name, m in self.named_modules()
+                if isinstance(m, (ColumnParallelConv2d, ColumnParallelLinear))}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Kaiming-uniform weights U(+-sqrt(6 / fan_in)), zero biases, BN
@@ -150,7 +223,8 @@ class AlphaZeroNet(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
     def forward(self, x: torch.Tensor) -> NetworkOutputs:
-        """x: [B, N, N, C] board planes (NHWC, any dtype)."""
+        """x: [B, N, N, C] board planes (NHWC, any dtype); with ``mdl > 1``
+        the same rows on every rank of the model group, a collective."""
         dtype = self.stem_conv.weight.dtype
         x = x.permute(0, 3, 1, 2).to(dtype)
         y = torch.relu(self.stem_bn(self.stem_conv(x)))
@@ -184,22 +258,57 @@ def to_inference_dtype(net: nn.Module, dtype) -> nn.Module:
 
 
 def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0,
-                  dtype: Optional[str] = None) -> AlphaZeroNet:
+                  dtype: Optional[str] = None, mesh: Optional[Mesh] = None) -> AlphaZeroNet:
     """The net for an (EnvConfig, NetworkConfig) pair, with random weights
     drawn from ``seed``, in eval mode, with parameters in ``dtype`` (default:
-    the config's inference dtype; BatchNorm stays float32)."""
+    the config's inference dtype; BatchNorm stays float32). With a ``mesh``
+    of ``mdl > 1``, this rank's part of it (``multihost.mdl_index``): the
+    slices of the whole net drawn from ``seed``."""
     dev = resolve_device(device)
-    net = AlphaZeroNet(
-        num_actions=env_cfg.num_actions,
-        board_size=env_cfg.board_size,
-        num_planes=env_cfg.num_planes,
-        num_res_blocks=net_cfg.num_res_blocks,
-        num_filters=net_cfg.num_filters,
-        num_fc_units=net_cfg.num_fc_units,
-        gomoku=net_cfg.gomoku,
-    )
-    net.reset_parameters(torch.Generator().manual_seed(seed))
-    return to_inference_dtype(net.to(dev), dtype or net_cfg.inference_dtype).eval()
+
+    def net(mdl):
+        return AlphaZeroNet(
+            num_actions=env_cfg.num_actions,
+            board_size=env_cfg.board_size,
+            num_planes=env_cfg.num_planes,
+            num_res_blocks=net_cfg.num_res_blocks,
+            num_filters=net_cfg.num_filters,
+            num_fc_units=net_cfg.num_fc_units,
+            gomoku=net_cfg.gomoku,
+            mdl=mdl,
+        )
+
+    whole = net(1)
+    whole.reset_parameters(torch.Generator().manual_seed(seed))
+    if mesh is not None and mesh.mdl > 1:
+        part = net(mesh.mdl)
+        part.load_state_dict(shard_state_dict(whole.state_dict(), mesh, multihost.mdl_index()))
+        whole = part
+    return to_inference_dtype(whole.to(dev), dtype or net_cfg.inference_dtype).eval()
+
+
+def shard_state_dict(full: dict, mesh: Mesh, mdl_index: int) -> dict:
+    """Rank ``mdl_index``'s slices of a whole-layout ``state_dict`` (or of
+    any dict of tensors named as the parameters, such as momentum buffers):
+    each tensor ``shard_spec`` shards cut to its part, the rest as is."""
+    out = {}
+    for name, value in full.items():
+        dim = shard_spec(name, value.shape, mesh.mdl)
+        if dim is not None:
+            width = value.shape[dim] // mesh.mdl
+            value = value.narrow(dim, mdl_index * width, width).clone()
+        out[name] = value
+    return out
+
+
+def gather_state_dict(net: AlphaZeroNet, tensors: Optional[dict] = None) -> dict:
+    """The whole layout of ``net``'s ``state_dict`` (or of ``tensors``, a
+    dict named as its parameters): every slice gathered over the model
+    group. A collective over the model group when ``net`` is sharded."""
+    tensors = net.state_dict() if tensors is None else tensors
+    sharded = net.sharded_names()
+    return {name: multihost.gather_slices(value, 0) if name in sharded else value
+            for name, value in tensors.items()}
 
 
 def _conv_weight(kernel) -> torch.Tensor:

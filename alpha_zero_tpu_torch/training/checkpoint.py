@@ -7,6 +7,12 @@ optimizer state (momentum buffers), the scheduler state and
 ``training_steps``, so training resumes bit-exact. It is written to a
 temporary file first and moved into place with ``os.replace``.
 
+A checkpoint is always the whole layout, whatever ``parallel.mdl`` the run
+had: a sharded net's slices and their momentum buffers are gathered over
+the model group before the write and cut to the restoring rank's slices
+after the read, so a checkpoint of one layout resumes in any other and
+``cli.match``, the evaluator and ``tools/ckpt_to_torch.py`` read it as is.
+
 ``train_state_from_flax`` turns a JAX ``TrainState`` (numpy leaves: params,
 batch_stats, the optax momentum trace and the step) into the port's
 ``TrainState``; ``tools/ckpt_to_torch.py`` uses it to convert orbax
@@ -20,7 +26,9 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from alpha_zero_tpu_torch.models.resnet import build_network, params_from_flax
+from alpha_zero_tpu_torch.models.resnet import (build_network, gather_state_dict,
+                                                params_from_flax, shard_state_dict)
+from alpha_zero_tpu_torch.parallel import multihost
 from alpha_zero_tpu_torch.training.learner import TrainState, create_train_state
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
@@ -29,17 +37,39 @@ def checkpoint_path(ckpt_dir: str, training_steps: int) -> str:
     return os.path.abspath(os.path.join(ckpt_dir, f"training_steps_{training_steps}"))
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, training_steps: int) -> str:
+def _momentum_by_name(state: TrainState, optimizer_state: dict) -> dict:
+    """``optimizer_state["state"]``'s momentum buffers by parameter name."""
+    names = [name for name, _ in state.net.named_parameters()]
+    return {names[i]: s["momentum_buffer"] for i, s in optimizer_state["state"].items()}
+
+
+def _with_momentum(optimizer_state: dict, state: TrainState, buffers: dict) -> dict:
+    """``optimizer_state`` with its momentum buffers replaced by ``buffers``
+    (by parameter name)."""
+    names = [name for name, _ in state.net.named_parameters()]
+    return {**optimizer_state, "state": {
+        i: {**s, "momentum_buffer": buffers[names[i]]}
+        for i, s in optimizer_state["state"].items()}}
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, training_steps: int,
+                    write: bool = True) -> str:
     """Writes ``ckpt_dir/training_steps_{t}`` atomically (making the
-    directory if needed); returns its path."""
+    directory if needed) in the whole layout; returns its path. With a
+    sharded net a collective over the model group: every rank of the group
+    calls it, and the ranks with ``write=False`` only help gather."""
     path = checkpoint_path(ckpt_dir, training_steps)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    optimizer = state.optimizer.state_dict()
     payload = {
-        "net": state.net.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "net": gather_state_dict(state.net),
+        "optimizer": _with_momentum(optimizer, state, gather_state_dict(
+            state.net, _momentum_by_name(state, optimizer))),
         "scheduler": state.scheduler.state_dict(),
         "training_steps": int(state.training_steps),
     }
+    if not write:
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -47,12 +77,19 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, training_steps: int) -> st
 
 
 def restore_checkpoint(path: str, target: TrainState) -> TrainState:
-    """Loads the checkpoint at ``path`` into ``target`` (a state of the same
-    architecture, on its device) and returns it."""
+    """Loads the checkpoint at ``path`` (the whole layout) into ``target``
+    (a state of the same architecture, on its device; with a sharded net,
+    cut to this rank's slices) and returns it."""
     device = next(target.net.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
-    target.net.load_state_dict(payload["net"])
-    target.optimizer.load_state_dict(payload["optimizer"])
+    net, optimizer = payload["net"], payload["optimizer"]
+    if target.net.sharded_names():
+        mesh, index = multihost.mesh(), multihost.mdl_index()
+        net = shard_state_dict(net, mesh, index)
+        optimizer = _with_momentum(optimizer, target, shard_state_dict(
+            _momentum_by_name(target, optimizer), mesh, index))
+    target.net.load_state_dict(net)
+    target.optimizer.load_state_dict(optimizer)
     target.scheduler.load_state_dict(payload["scheduler"])
     target.training_steps = int(payload["training_steps"])
     return target

@@ -16,11 +16,14 @@ The port of ``alpha_zero_tpu.training.learner``:
   float32 params); its BatchNorm layers run Flax's train-mode statistics.
 
 Data parallel (a process group of more than one rank, ``parallel/``):
-each rank steps on its rows of the global batch, the BatchNorm moments are
-the global batch's (``models/resnet.py:batch_moments``), and one
-``all_reduce`` averages the gradients and the two losses across ranks
-before the optimizer step, so every rank takes the global batch's step and
-reports its losses (XLA's psum of the dp-sharded step in the JAX package).
+each model group steps on its rows of the global batch, the BatchNorm
+moments are the global batch's (``models/resnet.py:batch_moments``), and
+``average_gradients`` averages the gradients and the two losses across
+model groups before the optimizer step, so every rank takes the global
+batch's step and reports its losses (XLA's psum of the dp-sharded step in
+the JAX package). With the model axis the net holds this rank's slices of
+the wide layers: their gradients are averaged over the data group, and
+SGD with weight decay updates each slice where it lives.
 
 PyTorch idiom: the state holds the module, optimizer and scheduler, and a
 train step updates it in place. The augmentation pick is an input (the
@@ -109,8 +112,11 @@ def make_train_step(compute_dtype: str = "float32", argument_data: bool = True):
         state.optimizer.zero_grad(set_to_none=True)
         (policy_loss + value_loss).backward()
         if multihost.world_size() > 1:
+            sharded = state.net.sharded_names()
+            params = list(state.net.named_parameters())
             policy_loss, value_loss = multihost.average_gradients(
-                list(state.net.parameters()), policy_loss.detach(), value_loss.detach())
+                [p for n, p in params if n in sharded], [p for n, p in params if n not in sharded],
+                policy_loss.detach(), value_loss.detach())
         state.optimizer.step()
         state.scheduler.step()
         state.training_steps += 1

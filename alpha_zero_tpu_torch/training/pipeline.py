@@ -27,22 +27,27 @@ previous one after its generation and writes ``evaluation.csv`` and an eval
 SGF, inline or (``run.eval_async``) on a worker thread that gets a copy of
 the weights; a failed evaluation is logged and skips its row.
 
-Data parallel (a process group of ``parallel.dp`` ranks, or
-``parallel.num_processes`` with a coordinator; ``cli/train.py`` starts them
-and ``parallel/`` has the collectives): every rank runs this loop on its own
-games (the game batch split over the local ranks, or
-``selfplay_batch_size`` a process with a coordinator) and its own replay
-partition, with its own self-play seed stream and its own ``actor{rank}.csv``
-and ``replay_state_p{rank}.npz``. A fence every ``parallel.fence_interval``
-self-play steps, and once at the end of the loop, sums the finished games
-across ranks, so every rank leaves self-play on the same step; rank 0 feeds
-the global counts to the resignation controller and broadcasts its
-threshold. Each rank samples ``batch_size / world`` rows, and trains only
-when every rank can sample; the step is the global batch's (BatchNorm
-moments and gradients across ranks). Rank 0 alone writes ``training.csv``
-(``total_games`` and ``total_samples`` counted over all ranks), the
-checkpoints and the evaluator's rows; every rank refreshes its self-play
-net. The model axis (``parallel.mdl > 1``) raises: ROADMAP A10b.
+Data and model parallel (a process group of ``parallel.dp *
+parallel.mdl`` ranks, or ``parallel.num_processes`` with a coordinator;
+``cli/train.py`` starts them and ``parallel/`` has the collectives; rank r
+is model group ``dp_index = r // mdl``): every model group runs this loop
+on its own games (the game batch split over the model groups, or
+``selfplay_batch_size`` a group with a coordinator) and its own replay
+partition, with its own self-play seed stream (drawn from ``dp_index``)
+and its own ``actor{dp_index}.csv`` and ``replay_state_p{dp_index}.npz``,
+written by its ``mdl_index`` 0. The ranks of a model group are replicas:
+the same games, draws, trees and replay rows, each computing its slices
+of the net's wide layers (``models/resnet.py``). A fence every
+``parallel.fence_interval`` self-play steps, and once at the end of the
+loop, sums the finished games over the model groups, so every rank leaves
+self-play on the same step; rank 0 feeds the global counts to the
+resignation controller and broadcasts its threshold. Each model group
+samples ``batch_size / dp`` rows, and trains only when every group can
+sample; the step is the global batch's (BatchNorm moments and gradients
+across model groups). Rank 0 alone writes ``training.csv``
+(``total_games`` and ``total_samples`` counted over all model groups), the
+checkpoints (in the whole layout, gathered over model group 0) and the
+evaluator's rows; every rank refreshes its self-play net, slice by slice.
 
 ``Trainer.profile`` traces a few self-play steps and one train step with
 ``torch.profiler`` into a Chrome trace.
@@ -65,7 +70,8 @@ import torch
 from alpha_zero_tpu_torch.config import AlphaZeroConfig
 from alpha_zero_tpu_torch.envs.go import GoEngine
 from alpha_zero_tpu_torch.envs.gomoku import GomokuEngine
-from alpha_zero_tpu_torch.models.resnet import build_network, to_inference_dtype
+from alpha_zero_tpu_torch.models.resnet import (build_network, gather_state_dict,
+                                                to_inference_dtype)
 from alpha_zero_tpu_torch.ops.symmetry import random_transform_id
 from alpha_zero_tpu_torch.parallel import mesh as mesh_lib
 from alpha_zero_tpu_torch.parallel import multihost
@@ -194,39 +200,46 @@ class Trainer:
     """Owns all state of a training run; ``run()`` drives it to completion.
 
     Randomness comes from three streams drawn from ``run.seed``: the initial
-    weights, the self-play draws (a generator on ``device``; each rank's own
-    when data parallel) and the augmentation picks (a host generator, the
-    same on every rank, as one pick serves the whole global batch).
+    weights, the self-play draws (a generator on ``device``; each model
+    group's own when data parallel, the same on its replicas) and the
+    augmentation picks (a host generator, the same on every rank, as one
+    pick serves the whole global batch).
 
-    Data parallel, the process group must be up before the Trainer is built
-    (``parallel.multihost.initialize``; ``cli/train.py`` does it), with
-    ``parallel.dp`` ranks, or ``parallel.num_processes`` with a coordinator
-    address, and ``device`` the rank's own."""
+    Data or model parallel, the process group must be up before the Trainer
+    is built (``parallel.multihost.initialize`` with ``parallel.mdl``;
+    ``cli/train.py`` does it), with ``parallel.dp * parallel.mdl`` ranks, or
+    ``parallel.num_processes`` with a coordinator address, and ``device``
+    the rank's own."""
 
     def __init__(self, cfg: AlphaZeroConfig, device="cuda") -> None:
         par = cfg.parallel
         self.world = multihost.world_size()
         self.rank = multihost.rank()
         self.mesh = mesh_lib.make_mesh(
-            par.num_processes if par.coordinator_address else par.dp, par.mdl)
-        if self.mesh.dp != self.world:
+            par.num_processes if par.coordinator_address else par.dp * par.mdl, par.mdl)
+        if self.mesh != multihost.mesh():
             raise RuntimeError(
-                f"the config asks for {self.mesh.dp} data-parallel ranks and the process "
-                f"group has {self.world}: start the ranks with cli.train, or call "
-                "parallel.multihost.initialize in each before building the Trainer")
+                f"the config asks for {self.mesh} and the process group has "
+                f"{multihost.mesh()}: start the ranks with cli.train, or call "
+                "parallel.multihost.initialize (with parallel.mdl) in each before "
+                "building the Trainer")
+        self.dp_index, self.mdl_index = self.mesh.coords(self.rank)
         self.multihost = self.world > 1
         self.is_host0 = self.rank == 0
-        # Games a rank: the local ranks split the game batch; with a
-        # coordinator it counts one process's games, as JAX's counts a host's.
-        split = 1 if par.coordinator_address else self.world
+        # The per-model-group files (actor CSV, SGF, replay state) are
+        # written by one replica.
+        self.writes_group_files = self.mdl_index == 0
+        # Games a model group: the local groups split the game batch; with a
+        # coordinator it counts one group's games, as JAX's counts a host's.
+        split = 1 if par.coordinator_address else self.mesh.dp
         if par.selfplay_batch_size % split:
             raise ValueError(f"parallel.selfplay_batch_size={par.selfplay_batch_size} must "
                              f"divide by parallel.dp={split}")
         batch = par.selfplay_batch_size // split
-        if cfg.train.batch_size % self.world:
+        if cfg.train.batch_size % self.mesh.dp:
             raise ValueError(f"train.batch_size={cfg.train.batch_size} must divide by the "
-                             f"{self.world} ranks")
-        self.local_batch_size = cfg.train.batch_size // self.world
+                             f"{self.mesh.dp} model groups")
+        self.local_batch_size = cfg.train.batch_size // self.mesh.dp
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = create_logger(cfg.run.log_level)
@@ -239,13 +252,14 @@ class Trainer:
         n = cfg.env.board_size
         obs_shape = (n, n, cfg.env.num_planes)
         init_seed, sp_seed, aug_seed = np.random.SeedSequence(cfg.run.seed).generate_state(3)
-        if self.multihost:
-            # Decorrelate the ranks' games (JAX folds in the process index).
-            sp_seed = np.random.SeedSequence([int(sp_seed), self.rank]).generate_state(1)[0]
+        if self.mesh.dp > 1:
+            # Decorrelate the model groups' games (JAX folds in the process
+            # index); a group's replicas draw the same numbers.
+            sp_seed = np.random.SeedSequence([int(sp_seed), self.dp_index]).generate_state(1)[0]
         self.generator = torch.Generator(device=self.device).manual_seed(int(sp_seed))
         self.aug_generator = torch.Generator().manual_seed(int(aug_seed))
         net = build_network(cfg.env, cfg.network, device=self.device,
-                            seed=int(init_seed), dtype="float32")
+                            seed=int(init_seed), dtype="float32", mesh=self.mesh)
         self.train_state = learner_lib.create_train_state(net, cfg.train)
         self.train_step = learner_lib.make_train_step(
             cfg.network.inference_dtype, argument_data=cfg.train.argument_data)
@@ -283,12 +297,13 @@ class Trainer:
                                       buffer_size=1)  # written by rank 0 only
         self.eval_writer = CsvWriter(os.path.join(cfg.run.logs_dir, "evaluation.csv"),
                                      buffer_size=1)
-        self.evaluator = None  # built by enable_evaluator()
+        self.evaluator = None  # built by enable_evaluator(), on rank 0
+        self._evaluating = False  # enable_evaluator() was called
         self._eval_failures = 0  # consecutive failed evaluations
         self._eval_queue: Optional[queue.Queue] = None
         self._replay_path = os.path.join(
             cfg.run.ckpt_dir,
-            f"replay_state_p{self.rank}.npz" if self.multihost else "replay_state.npz")
+            f"replay_state_p{self.dp_index}.npz" if self.mesh.dp > 1 else "replay_state.npz")
         self._last_replay_save = 0
         self.timer = Timer()
         self.training_steps = 0
@@ -322,8 +337,9 @@ class Trainer:
             self.global_games_added, self.global_samples_added = (int(x) for x in (
                 multihost.global_sum([self.replay.num_games_added,
                                       self.replay.num_samples_added])))
-            # Every rank starts from rank 0's weights and optimizer state
-            # (the same bits when all built them from run.seed).
+            # Every model group starts from the first group's weights and
+            # optimizer state, slice by slice (the same bits when all built
+            # them from run.seed).
             net = self.train_state.net
             multihost.broadcast_tensors(
                 list(net.state_dict().values())
@@ -352,7 +368,7 @@ class Trainer:
             self.resign_controller.threshold)
 
     def _actor_csv_path(self) -> str:
-        return os.path.join(self.cfg.run.logs_dir, f"actor{self.rank}.csv")
+        return os.path.join(self.cfg.run.logs_dir, f"actor{self.dp_index}.csv")
 
     def _last_recorded_resign_threshold(self) -> Optional[float]:
         """Last ACTIVE threshold in this rank's actor CSV. Rows with -1.0 are
@@ -375,7 +391,8 @@ class Trainer:
 
     def _refresh_play_net(self) -> None:
         """Copies the master weights into the self-play net, each tensor cast
-        to its own dtype (BatchNorm's stay float32)."""
+        to its own dtype (BatchNorm's stay float32); with the model axis,
+        this rank's slices into its slices."""
         self.play_net.load_state_dict(self.train_state.net.state_dict())
 
     # ------------------------------------------------------------------
@@ -475,10 +492,12 @@ class Trainer:
                 row["resign_threshold"] = self.resign_controller.threshold
             row["time_per_game"] = round(self.timer.mean_time(), 4)
             row["training_steps"] = self.training_steps
-            self.actor_writer.write(row)
+            if self.writes_group_files:
+                self.actor_writer.write(row)
 
             if (
-                cfg.run.save_sgf_dir
+                self.writes_group_files
+                and cfg.run.save_sgf_dir
                 and cfg.run.save_sgf_interval > 0
                 and self.played_games % cfg.run.save_sgf_interval == 0
             ):
@@ -497,7 +516,8 @@ class Trainer:
                 # Threshold, not modulo: several games can finish in one
                 # lockstep step, hopping over the exact multiple.
                 self._last_replay_save = self.replay.num_games_added
-                self.replay.save(self._replay_path)
+                if self.writes_group_files:
+                    self.replay.save(self._replay_path)
         return 0 if self.multihost else len(finished)
 
     def _fence(self, pending: list) -> int:
@@ -528,7 +548,7 @@ class Trainer:
         )
         path = os.path.join(
             self.cfg.run.save_sgf_dir,
-            f"actor{self.rank}_{get_time_stamp(True)}_{self.played_games}.sgf",
+            f"actor{self.dp_index}_{get_time_stamp(True)}_{self.played_games}.sgf",
         )
         with open(path, "w") as f:
             f.write(content)
@@ -536,10 +556,11 @@ class Trainer:
     # ------------------------------------------------------------------
     def _train_once(self) -> Optional[learner_lib.TrainMetrics]:
         """One SGD step on ``local_batch_size`` replay rows, or None when
-        the replay (any rank's, data parallel) is too small to sample."""
+        the replay (any model group's, data parallel) is too small to
+        sample."""
         batch = self.replay.sample(self.local_batch_size)
         # Collective control flow: every rank trains only if all can sample.
-        if multihost.global_game_count(int(batch is not None)) < self.world:
+        if multihost.global_game_count(int(batch is not None)) < self.mesh.dp:
             batch = None
         if batch is None:
             return None
@@ -576,8 +597,9 @@ class Trainer:
 
         self.latest_ckpt_path = ckpt_lib.checkpoint_path(cfg.run.ckpt_dir,
                                                          self.training_steps)
-        if self.is_host0:
-            ckpt_lib.save_checkpoint(cfg.run.ckpt_dir, self.train_state, self.training_steps)
+        if self.dp_index == 0:  # model group 0 gathers the whole layout, rank 0 writes it
+            ckpt_lib.save_checkpoint(cfg.run.ckpt_dir, self.train_state, self.training_steps,
+                                     write=self.is_host0)
         multihost.barrier()  # the checkpoint is on disk before any rank goes on
         self._refresh_play_net()
         if cfg.train.drop_straddling_games:
@@ -595,7 +617,8 @@ class Trainer:
         the card) under ``record_function`` ranges ``selfplay`` and
         ``train_step``; writes a Chrome trace ``trace_rank{r}.json`` to
         ``out_dir`` (default ``logs_dir/profile``) and returns its path.
-        Data parallel, every rank calls it together (fences, train step)."""
+        Data or model parallel, every rank calls it together (fences,
+        gathers, train step)."""
         from torch.profiler import ProfilerActivity, profile, record_function
 
         out_dir = out_dir or os.path.join(self.cfg.run.logs_dir, "profile")
@@ -638,10 +661,15 @@ class Trainer:
         cached as an npz in ``run.ckpt_dir``). A resumed run continues the
         Elo curve from the last ``evaluation.csv`` row and plays its first
         new checkpoint against the resumed weights. Data parallel, only rank
-        0 has an evaluator: it plays from its resident weights."""
+        0 has an evaluator: it plays from its resident weights. With the
+        model axis its nets are whole ones, loaded with the weights gathered
+        over model group 0 (its searches have no peers to gather with), so
+        every rank calls this."""
         from alpha_zero_tpu_torch.eval.dataset import build_eval_dataset
         from alpha_zero_tpu_torch.eval.evaluator import Evaluator
 
+        self._evaluating = True
+        resumed = self._whole_weights() if self.training_steps > 0 else None
         if not self.is_host0:
             return
         cfg = self.cfg
@@ -652,8 +680,11 @@ class Trainer:
                 cfg.run.eval_games_dir, n, cfg.env.num_stack, logger=self.logger,
                 cache_path=os.path.join(cfg.run.ckpt_dir, f"eval_dataset_{n}x{n}.npz"),
                 device=self.device)
+        net = self.train_state.net
+        if self.mesh.mdl > 1:
+            net = build_network(cfg.env, cfg.network, device=self.device, dtype="float32")
         self.evaluator = Evaluator(
-            self.engine, self.train_state.net, cfg.search,
+            self.engine, net, cfg.search,
             inference_dtype=cfg.network.inference_dtype,
             default_rating=cfg.run.default_rating, dataset=dataset,
             eval_games=cfg.run.eval_games, device=self.device)
@@ -661,11 +692,20 @@ class Trainer:
             rating = self._last_recorded_rating()
             self.evaluator.restore_continuity(
                 rating if rating is not None else cfg.run.default_rating,
-                prev_weights=self.train_state.net.state_dict())
+                prev_weights=resumed)
             if rating is not None:
                 self.logger.info(
                     f"Evaluator resumed: Elo {rating:.2f} from the last "
                     f"evaluation.csv row, previous model = the resumed checkpoint")
+
+    def _whole_weights(self) -> Optional[dict]:
+        """The master weights in the whole layout on rank 0, None on every
+        other rank. With the model axis a collective over model group 0,
+        whose ranks must all call it."""
+        if self.dp_index != 0:
+            return None
+        weights = gather_state_dict(self.train_state.net)
+        return weights if self.is_host0 else None
 
     def _last_recorded_rating(self) -> Optional[float]:
         """The last black (that is, promoted) Elo rating in evaluation.csv."""
@@ -717,10 +757,12 @@ class Trainer:
         """Evaluates the current weights; writes evaluation.csv and the eval
         SGF. In async mode the worker gets a copy of the weights (the next
         train step updates the master weights in place) and this returns
-        None."""
+        None. Every rank calls it (model group 0 gathers the weights)."""
+        if not self._evaluating:
+            return None
+        weights = self._whole_weights()
         if self.evaluator is None:
             return None
-        weights = self.train_state.net.state_dict()
         if self._eval_queue is not None:
             self._eval_queue.put(({k: v.detach().clone() for k, v in weights.items()},
                                   self.training_steps))

@@ -23,7 +23,7 @@ card against its CPU path on small inputs, then drives the port's paths:
   2-byte rows), the Gomoku engine on the card equal to its CPU path.
 - [8] the training path: ``cli.train.main`` in-process at go9 full width
   (bf16 compute, float32 master weights, 1024 self-play games, train batch
-  1024; ``env.max_steps=24`` is the one cut), two generations of 10 steps
+  1024; ``env.max_steps=GAME_STEPS`` is the one cut), two generations of 10 steps
   with run and checkpoint directories under ``build/``: launches per
   move as in [5], replay against the harvested games, finite losses, both
   checkpoints restored bit-equal, the bf16 self-play net equal to the
@@ -39,14 +39,14 @@ card against its CPU path on small inputs, then drives the port's paths:
   the CPU's.
 - [9] matches: ``cli.match.main`` in-process, ``training_steps_10`` (black)
   against ``training_steps_20`` at go9 full width, 64 games in lockstep
-  (``env.max_steps=24``), then one deterministic ``eval_games=1`` game
+  (``env.max_steps=GAME_STEPS``), then one deterministic ``eval_games=1`` game
   between them: every move legal on a replay through the host ``GoEnv``,
   the results equal to ``log.csv``, 199 K1 and 398 K2 launches a ply, and
   K1 and K2 bit-equal to their plain versions on searched trees at B=1
   and B=2, timed at B=1 and B=64.
 - [10] data parallel: ``cli.train.main`` with ``parallel.dp=2`` on the one
   card (two ranks on ``cuda:0`` over gloo, spawned by ``cli.train``; their
-  instrument is ``dp_rank_checks``), go9 full width, 512 games and 512
+  instrument is ``rank_checks``), go9 full width, 512 games and 512
   train rows a rank, ``env.max_steps=24``, one generation of 10 steps,
   ``--no-eval``: 120 K1 and 240 K2 launches in every move of each rank,
   both ranks leaving self-play on the same move with the same global game
@@ -56,6 +56,23 @@ card against its CPU path on small inputs, then drives the port's paths:
   losses; seconds of self-play, training and fences, ms per DP train step,
   peak memory per rank. [8] also calls ``Trainer.profile(num_steps=1)``,
   whose trace must name both kernels.
+- [11] the model axis: ``cli.train.main`` with ``parallel.dp=1,
+  parallel.mdl=2`` (two gloo ranks on ``cuda:0``, one model group, each
+  holding half the output channels of the stem, the 20 block convs,
+  ``policy_conv``, ``policy_fc`` and ``value_fc1``), go9 full width, 64
+  games, ``env.max_steps=5``, train batch 256, 4 steps and one checkpoint,
+  ``--no-eval``: 120 K1 and 240 K2 launches and 24 gathers a net
+  evaluation in every move of each rank, the replicas' games, trees,
+  replay rows and weights bit-equal (digests), each rank's slices equal to
+  the gathered net's, the checkpoint (whole layout) restored here into a
+  whole bf16 net whose outputs on 256 replay rows are within
+  ``MDL_NET_ATOL`` of the sharded net's, the first sharded step against
+  one step of this process (losses within ``MDL_LOSS_ATOL``, the update as
+  in [10]); seconds a move, host seconds in gathers, ms per sharded train
+  step, peak memory a rank.
+- [12] the dry run: ``parallel/dryrun.py:dryrun_multichip(4, "cuda")``,
+  four gloo ranks on ``cuda:0`` at dp=2 x mdl=2 (one train step, one
+  self-play move on 5x5 Go), its OK line, 5 K1 and 10 K2 launches a rank.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -68,11 +85,13 @@ the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
 kernels' launch counts are set to 0 before each of [5], [7], [8], [9] and
-[10] (in each of [10]'s ranks) and read after it; ``launches`` sums them,
+[10], [11] and [12] (in each of their ranks) and read after it;
+``launches`` sums them,
 ``launches_by_path`` splits them (``go9_training`` is [8]'s self-play and
 profiled move, ``go9_eval`` its evaluation plies and [9]'s eval game,
-``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks, each
-counted in its own process and carried back).
+``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks,
+``go9_mdl2`` [11]'s and ``dryrun`` [12]'s four, each counted in its own
+process and carried back).
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -97,6 +116,11 @@ TIMED_MOVES = 3
 GOMOKU_TIMED_MOVES = 2
 TRAIN_STEPS = 20
 MATCH_GAMES = 64
+# [8]'s and [9]'s games end at this many moves. 24 until the model axis
+# added [11] and [12]: their evaluations and matches, launch-bound at 2-4 s
+# a ply, took 600 s of a 1287 s run on a slower card, past the 1200 s the
+# script has.
+GAME_STEPS = 12
 # [10]'s first DP step (bf16 compute, two ranks of 512 rows) against one
 # step of the same net on the 1024 rows in one process: cuDNN picks its
 # convolution algorithms per batch size, so bf16 activations may round
@@ -116,6 +140,26 @@ DP_LOSS_ATOL = 1e-2
 # undivided, or one rank's gradient alone, lands ~100% or tens of percent
 # off the float32 update, well past twice the bf16 step's own error.
 DP_UPDATE_FACTOR = 2.0
+# [11]: one model group of two ranks (go9, 64 games, train batch 256). Its
+# first sharded step is held to one in-process step on the same 256 rows
+# (DP_UPDATE_FACTOR for the update): the ranks hold the same rows and the
+# same BatchNorm moments, and only cuDNN's choice of kernel for a layer of
+# 64 output channels instead of 128 may round the bf16 activations
+# differently, which moves a loss averaged over 256 rows by far less than
+# 1e-3; a missing gradient sum over the model group moves it by more.
+MDL_BATCH = 64
+MDL_TRAIN_BATCH = 256
+MDL_LOSS_ATOL = 1e-3
+# The checkpoint restored into a whole bf16 net against the sharded bf16
+# self-play net on the first 256 replay rows: the same weights and
+# arithmetic, but a kernel picked per shape may round differently at each
+# of 21 convolutions. The bf16 port stands 0.094 (logits) and 0.040 (value)
+# off Flax's bf16 net on a trained go9 checkpoint (ROADMAP C1), two
+# implementations apart; 0.1 bounds a rounding difference and is far below
+# a wrong gather (channels out of order or one rank's slice twice), which
+# moves logits by O(1).
+MDL_NET_ROWS = 256
+MDL_NET_ATOL = 0.1
 EVAL_HEADER = ["datetime", "training_steps", "game_length", "game_result", "num_passes",
                "black_elo_rating", "white_elo_rating", "eval_games", "latest_win_rate",
                "value_mse_error", "policy_entropy", "policy_top_1_accuracy",
@@ -246,7 +290,7 @@ def check_plies(label, plies, sims):
 def train_path(card, dev) -> dict:
     """[8]: ``cli.train.main`` in-process at go9 full width (10 x 128, bf16
     compute, float32 master weights, 1024 self-play games, train batch
-    1024), cut only in game length (``env.max_steps=24``), two generations
+    1024), cut only in game length (``env.max_steps=GAME_STEPS``), two generations
     of 10 steps. Checks the launches of every self-play move, the replay
     against the harvested games, finite losses, both checkpoints restored
     bit-equal, the self-play net after each generation, and a resumed
@@ -280,8 +324,9 @@ def train_path(card, dev) -> dict:
     sgf_dir = os.path.join(run_dir, "sgf")
     games_dir = os.path.join(HERE, "logs", "go", "9x9_matched", "sgf")
     sets = [f"parallel.selfplay_batch_size={BATCH}", f"train.batch_size={BATCH}",
-            "env.max_steps=24", f"train.min_games={BATCH}", f"train.games_per_ckpt={BATCH}",
-            "train.ckpt_interval=10", f"train.max_training_steps={TRAIN_STEPS}",
+            f"env.max_steps={GAME_STEPS}", f"train.min_games={BATCH}",
+            f"train.games_per_ckpt={BATCH}", "train.ckpt_interval=10",
+            f"train.max_training_steps={TRAIN_STEPS}",
             f"run.ckpt_dir={ckpt_dir}", f"run.logs_dir={logs_dir}", "run.eval_games=2",
             f"run.eval_games_dir={games_dir}", f"run.save_sgf_dir={sgf_dir}",
             "run.save_sgf_interval=0"]
@@ -497,7 +542,7 @@ def train_path(card, dev) -> dict:
     gens = [{"selfplay_s": sp_s, "train_s": gen_s - ck_s, "checkpoint_s": ck_s}
             for sp_s, gen_s, ck_s in zip(seen["selfplay_s"], seen["generation_s"],
                                          seen["checkpoint_s"])]
-    out = {"config": "go9", "reduced": {"env.max_steps": 24}, "selfplay_batch": BATCH,
+    out = {"config": "go9", "reduced": {"env.max_steps": GAME_STEPS}, "selfplay_batch": BATCH,
            "train_batch": BATCH, "training_steps": TRAIN_STEPS,
            "selfplay_moves": len(seen["moves"]), "games": len(games), "samples": n,
            "train_step_ms": step_ms, "train_samples_per_s": BATCH * 1e3 / step_ms,
@@ -510,7 +555,8 @@ def train_path(card, dev) -> dict:
            "eval_launches": [sum(x[i] for x in seen["eval_plies"]) for i in (0, 1)],
            "eval_dataset_positions": len(dataset), "evaluation_rows": eval_rows}
     print(f"[8] go9 training via cli.train (10 x 128, bf16 compute, f32 master weights; "
-          f"{BATCH} self-play games, train batch {BATCH}; env.max_steps=24 the only cut) "
+          f"{BATCH} self-play games, train batch {BATCH}; env.max_steps={GAME_STEPS} the only "
+          "cut) "
           f"on {card}: {len(seen['moves'])} self-play moves ({loop_len} K1 and "
           f"{2 * loop_len} K2 launches each), {len(games)} games, {n} samples, "
           f"{TRAIN_STEPS} train steps; {step_ms:.3f} ms per train step at batch {BATCH} "
@@ -535,22 +581,30 @@ def train_path(card, dev) -> dict:
     return out, ckpt_dir
 
 
-def dp_rank_checks(trainer) -> None:
-    """[10]'s instrument in each rank (``cli.train``'s ``prepare`` hook, so
-    it runs in the spawned process): K1/K2 launches of every self-play move
-    (the counts set to 0 just before the run), each exit from self-play,
-    seconds of self-play, of the fences and of each train generation, the
-    first DP step's local batch and global losses, then, after the run, ms
-    per DP train step (CUDA events, on a copy of the state), peak memory,
-    the final train state and self-play net. Writes them under
-    ``logs_dir/rank{r}``; raises if a move's launches are off."""
+def rank_checks(trainer) -> None:
+    """[10]'s and [11]'s instrument in each rank (``cli.train``'s ``prepare``
+    hook, so it runs in the spawned process): K1/K2 launches, net forward
+    passes and model-axis gathers of every self-play move (the counts set
+    to 0 just before the run), each exit from self-play, seconds of
+    self-play, of the fences, of the gathers and of each train generation,
+    the first step's local batch and global losses, then, after the run, ms
+    per train step (CUDA events, on a copy of the state), peak memory, the
+    final train state and self-play net in the whole layout, digests of the
+    rank's games, trees, replay rows and weights, this rank's slices
+    against the gathered net and its bf16 self-play net's outputs on the
+    first ``MDL_NET_ROWS`` replay rows. Writes them under
+    ``logs_dir/rank{r}``; raises if a move's launches or gathers are off or
+    a slice differs from the gathered net."""
     import copy
 
     import numpy as np
     import torch
 
+    from alpha_zero_tpu_torch.models.resnet import gather_state_dict, shard_state_dict
     from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
     from alpha_zero_tpu_torch.ops.symmetry import random_transform_id
+    from alpha_zero_tpu_torch.parallel import multihost
+    from alpha_zero_tpu_torch.parallel.dryrun import digest
     from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
     from alpha_zero_tpu_torch.utils.device import time_ms
 
@@ -558,21 +612,34 @@ def dp_rank_checks(trainer) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    gathers = multihost.all_gather_channels
     out_dir = os.path.join(trainer.cfg.run.logs_dir, f"rank{trainer.rank}")
     os.makedirs(out_dir, exist_ok=True)
     rec = {"rank": trainer.rank, "world": trainer.world, "device": str(trainer.device),
+           "mesh": list(trainer.mesh), "dp_index": trainer.dp_index,
            "games_a_step": int(trainer.sp_state.games.done.shape[0]),
            "local_batch": trainer.local_batch_size, "moves": [], "exits": [],
-           "selfplay_s": [], "generation_s": [], "fence_s": 0.0, "fences": 0}
-    if trainer.is_host0:
-        ckpt_lib.save_checkpoint(os.path.join(out_dir, "init"), trainer.train_state, 0)
+           "selfplay_s": [], "generation_s": [], "fence_s": 0.0, "fences": 0,
+           "gather_s": 0.0, "sharded_layers": len(trainer.play_net.sharded_names())}
+    ckpt_lib.save_checkpoint(os.path.join(out_dir, "init"), trainer.train_state, 0,
+                             write=trainer.is_host0)
     step_fn, until, fence = trainer.selfplay_step, trainer.selfplay_until, trainer._fence
     train_step, generation, run = trainer.train_step, trainer.train_generation, trainer.run
+    gather_slices = multihost.gather_slices
+    forwards = [0]
+    trainer.play_net.register_forward_pre_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+
+    def timed_gather(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = gather_slices(*args, **kwargs)
+        rec["gather_s"] += time.perf_counter() - t0
+        return out
 
     def counted_step(*args, **kwargs):
-        s0, w0 = select.launches, writer.launches
+        s0, w0, f0, g0 = select.launches, writer.launches, forwards[0], gathers.calls
         out = step_fn(*args, **kwargs)
-        rec["moves"].append((select.launches - s0, writer.launches - w0))
+        rec["moves"].append((select.launches - s0, writer.launches - w0, forwards[0] - f0,
+                             gathers.calls - g0))
         return out
 
     def timed_until(*args, **kwargs):
@@ -609,20 +676,44 @@ def dp_rank_checks(trainer) -> None:
 
     def checked_run(*args, **kwargs):
         torch.cuda.reset_peak_memory_stats()
-        select.launches = writer.launches = 0
+        select.launches = writer.launches = gathers.calls = 0
+        multihost.gather_slices = timed_gather
         t0 = time.perf_counter()
         run(*args, **kwargs)
         rec["run_s"] = time.perf_counter() - t0
+        multihost.gather_slices = gather_slices
         rec["launches"] = (select.launches, writer.launches)
+        rec["gathers"] = gathers.calls
         rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         loop_len = trainer.cfg.search.max_new_sims
-        if not rec["moves"] or set(rec["moves"]) != {(loop_len, 2 * loop_len)}:
-            raise SystemExit(f"[10] rank {trainer.rank}: launches per self-play move "
-                             f"{sorted(set(rec['moves']))}, expected ({loop_len}, "
-                             f"{2 * loop_len})")
-        ckpt_lib.save_checkpoint(out_dir, trainer.train_state, trainer.training_steps)
-        torch.save(trainer.play_net.state_dict(), os.path.join(out_dir, "play_net.pt"))
-        # ms per DP train step: every rank steps together on its own rows.
+        want = {(loop_len, 2 * loop_len, f, f * rec["sharded_layers"])
+                for _, _, f, _ in rec["moves"] if f > 0}
+        if not rec["moves"] or set(rec["moves"]) != want:
+            raise SystemExit(f"rank {trainer.rank}: (K1, K2, forwards, gathers) per self-play "
+                             f"move {sorted(set(rec['moves']))}, expected {sorted(want)} "
+                             f"({rec['sharded_layers']} gathers a forward)")
+        path = ckpt_lib.save_checkpoint(out_dir, trainer.train_state, trainer.training_steps)
+        play_net = gather_state_dict(trainer.play_net)
+        torch.save(play_net, os.path.join(out_dir, "play_net.pt"))
+        # This rank's slices are the gathered net's, master and self-play.
+        for net, whole in ((trainer.train_state.net, gather_state_dict(trainer.train_state.net)),
+                           (trainer.play_net, play_net)):
+            mine = shard_state_dict(whole, trainer.mesh, trainer.mdl_index)
+            if not all(torch.equal(v, mine[k]) for k, v in net.state_dict().items()):
+                raise SystemExit(f"rank {trainer.rank}: its slices differ from the gathered net")
+        replay = trainer.replay
+        rows = replay.states[:MDL_NET_ROWS]
+        with torch.no_grad():
+            o = trainer.play_net(torch.from_numpy(rows).to(trainer.device))
+        torch.save({"rows": torch.from_numpy(rows), "pi_logits": o.pi_logits.cpu(),
+                    "value": o.value.cpu()}, os.path.join(out_dir, "net_outputs.pt"))
+        rec["digests"] = {
+            "games": digest(trainer.sp_state.games), "trees": digest(trainer.sp_state.trees),
+            "replay": digest(replay.states[:replay.size], replay.pi_probs[:replay.size],
+                             replay.values[:replay.size]),
+            "weights": digest(torch.load(path, weights_only=True)["net"], play_net),
+            "net_outputs": digest(o.pi_logits, o.value)}
+        # ms per train step: every rank steps together on its rows.
         batch = trainer.replay.sample(trainer.local_batch_size)
         inputs = tuple(torch.from_numpy(x).to(trainer.device)
                        for x in (batch.state, batch.pi_prob, batch.value))
@@ -639,19 +730,18 @@ def dp_rank_checks(trainer) -> None:
         first_step_saved, timed_generation, checked_run)
 
 
-def dp_path(card, dev) -> dict:
-    """[10]: ``cli.train.main`` with ``parallel.dp=2`` on the one card: two
-    gloo ranks on ``cuda:0`` at go9 full width (bf16, 200 sims, reuse,
-    ``max_new_sims=120``; ``selfplay_batch_size=1024``, 512 games a rank;
-    ``train.batch_size=1024``, 512 rows a rank), ``env.max_steps=24``, one
-    generation of 10 steps, ``--no-eval``. Each rank is checked by
-    ``dp_rank_checks``; here, across them: the same exits from self-play
-    with at least ``min_games`` games, bit-equal train states and self-play
-    nets, the checkpoint restored bit-equal, the first DP step's losses
-    against one step of this process on the two ranks' rows
-    (``DP_LOSS_ATOL``) and its weight update against the float32 step's
-    (``DP_UPDATE_FACTOR``), finite losses. Returns the numbers and each
-    rank's (K1, K2) launches."""
+def parallel_run(label, dev, sets, steps, games, loss_atol):
+    """``cli.train.main`` on go9 with ``sets`` (the layout, batches and run
+    directories under ``build/``), ``--no-eval``, every rank instrumented by
+    ``rank_checks``; ``steps`` training steps in one generation of
+    ``games`` games. Checks across the ranks: the same exits from self-play
+    with at least ``games`` games, bit-equal train states and self-play nets
+    (whole layout), ``training_steps_{steps}`` restored bit-equal here, the
+    first step's losses within ``loss_atol`` of one step of this process on
+    the same rows and its weight update within ``DP_UPDATE_FACTOR`` times
+    the single-process bf16 step's distance from the float32 step, finite
+    losses. Returns the config, the ranks' records, the wall seconds, the
+    numbers of the first-step check and the restored final state."""
     import csv
     import math
 
@@ -664,6 +754,99 @@ def dp_path(card, dev) -> dict:
     from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
     from alpha_zero_tpu_torch.training import learner
 
+    cfg = resolve_config("go9", sets)
+    logs_dir, ckpt_dir = cfg.run.logs_dir, cfg.run.ckpt_dir
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cli_train.main(["--config", "go9", "--device", str(dev), "--no-eval"]
+                   + [x for v in sets for x in ("--set", v)], prepare=rank_checks)
+    wall = time.time() - t0
+    world = cfg.parallel.dp * cfg.parallel.mdl
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(logs_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    if any(x["exits"] != r0["exits"] for x in ranks) or r0["exits"][0][1] < games:
+        raise SystemExit(f"{label} exits from self-play differ or fall short: "
+                         f"{[x['exits'] for x in ranks]}")
+
+    def fresh_state():
+        net = build_network(cfg.env, cfg.network, device=dev, dtype="float32")
+        return learner.create_train_state(net, cfg.train)
+
+    final = [ckpt_lib.restore_checkpoint(
+        os.path.join(logs_dir, f"rank{r}", f"training_steps_{steps}"), fresh_state())
+        for r in range(world)]
+    if not all(ckpt_lib.states_equal(final[0], x) for x in final):
+        raise SystemExit(f"{label} the ranks' train states differ after training")
+    nets = [torch.load(os.path.join(logs_dir, f"rank{r}", "play_net.pt"), map_location=dev)
+            for r in range(world)]
+    if not all(n.keys() == nets[0].keys() and all(torch.equal(nets[0][k], n[k]) for k in n)
+               for n in nets):
+        raise SystemExit(f"{label} the ranks' bf16 self-play nets differ")
+    restored = ckpt_lib.restore_checkpoint(
+        os.path.join(ckpt_dir, f"training_steps_{steps}"), fresh_state())
+    if not ckpt_lib.states_equal(restored, final[0]):
+        raise SystemExit(f"{label} training_steps_{steps} restores a state other than the "
+                         "ranks'")
+
+    # The first step against one step in this process on every model
+    # group's rows (a group's replicas hold the same rows).
+    groups = range(0, world, cfg.parallel.mdl)
+    batches = [np.load(os.path.join(logs_dir, f"rank{r}", "first_step.npz")) for r in groups]
+    if (len({int(b["tid"]) for b in batches}) != 1
+            or any(x["first_step"] != r0["first_step"] for x in ranks)):
+        raise SystemExit(f"{label} the ranks' first steps differ in transform or losses")
+    inputs = tuple(torch.from_numpy(np.concatenate([b[k] for b in batches])).to(dev)
+                   for k in ("states", "pis", "values"))
+
+    def params(state):
+        return torch.cat([p.detach().flatten().clone() for p in state.net.parameters()])
+
+    def init_state():
+        return ckpt_lib.restore_checkpoint(
+            os.path.join(logs_dir, "rank0", "init", "training_steps_0"), fresh_state())
+
+    def one_process_step(dtype):
+        state = init_state()
+        m = learner.make_train_step(dtype, cfg.train.argument_data)(
+            state, *inputs, int(batches[0]["tid"]))
+        return params(state), [float(m.policy_loss), float(m.value_loss)]
+
+    p_bf16, single = one_process_step(cfg.network.inference_dtype)
+    p_f32, _ = one_process_step("float32")
+    p0 = params(init_state())
+    p_par = params(ckpt_lib.restore_checkpoint(
+        os.path.join(logs_dir, "rank0", "step1", "training_steps_1"), fresh_state()))
+    loss_err = max(abs(a - b) for a, b in zip(single, r0["first_step"]))
+    f32_norm = (p_f32 - p0).norm()
+    update_err = {"ranks_vs_f32": float((p_par - p_f32).norm() / f32_norm),
+                  "bf16_vs_f32": float((p_bf16 - p_f32).norm() / f32_norm),
+                  "ranks_vs_bf16": float((p_par - p_bf16).norm() / (p_bf16 - p0).norm())}
+    if (loss_err > loss_atol
+            or update_err["ranks_vs_f32"] > DP_UPDATE_FACTOR * update_err["bf16_vs_f32"]):
+        raise SystemExit(f"{label} first step vs one process on the same rows: losses "
+                         f"{r0['first_step']} vs {single} (err {loss_err}, limit "
+                         f"{loss_atol}); weight update's relative errors {update_err} "
+                         f"(ranks vs float32 at most {DP_UPDATE_FACTOR} x bf16 vs float32)")
+    with open(os.path.join(logs_dir, "training.csv")) as f:
+        losses = [(float(r["policy_loss"]), float(r["value_loss"])) for r in csv.DictReader(f)]
+    if not losses or not all(math.isfinite(x) for pair in losses for x in pair):
+        raise SystemExit(f"{label} losses not finite: {losses}")
+    check = {"first_step_losses": r0["first_step"], "single_process_losses": single,
+             "loss_err": loss_err, "update_rel_err": update_err, "losses": losses}
+    return cfg, ranks, wall, check, restored
+
+
+def dp_path(card, dev) -> dict:
+    """[10]: ``cli.train.main`` with ``parallel.dp=2`` on the one card: two
+    gloo ranks on ``cuda:0`` at go9 full width (bf16, 200 sims, reuse,
+    ``max_new_sims=120``; ``selfplay_batch_size=1024``, 512 games a rank;
+    ``train.batch_size=1024``, 512 rows a rank), ``env.max_steps=24``, one
+    generation of 10 steps, ``--no-eval``, checked by ``parallel_run``
+    (the first step's losses within ``DP_LOSS_ATOL``). Returns the numbers
+    and each rank's (K1, K2) launches."""
     run_dir = os.path.join(HERE, "build", "chip_smoke_dp")
     shutil.rmtree(run_dir, ignore_errors=True)
     ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
@@ -672,80 +855,10 @@ def dp_path(card, dev) -> dict:
             f"train.games_per_ckpt={BATCH}", "train.ckpt_interval=10",
             "train.max_training_steps=10", f"run.ckpt_dir={ckpt_dir}",
             f"run.logs_dir={logs_dir}"]
-    cfg = resolve_config("go9", sets)
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    cli_train.main(["--config", "go9", "--device", str(dev), "--no-eval"]
-                   + [x for v in sets for x in ("--set", v)], prepare=dp_rank_checks)
-    wall = time.time() - t0
-    ranks = []
-    for r in range(2):
-        with open(os.path.join(logs_dir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    r0, r1 = ranks
+    cfg, ranks, wall, check, _ = parallel_run("[10]", dev, sets, 10, BATCH, DP_LOSS_ATOL)
+    r0 = ranks[0]
     if [x["games_a_step"] for x in ranks] != [BATCH // 2] * 2 or r0["world"] != 2:
         raise SystemExit(f"[10] games a rank {[x['games_a_step'] for x in ranks]}")
-    if r0["exits"] != r1["exits"] or r0["exits"][0][1] < BATCH:
-        raise SystemExit(f"[10] exits from self-play differ or fall short: "
-                         f"{r0['exits']} / {r1['exits']}")
-
-    def fresh_state():
-        net = build_network(cfg.env, cfg.network, device=dev, dtype="float32")
-        return learner.create_train_state(net, cfg.train)
-
-    final = [ckpt_lib.restore_checkpoint(
-        os.path.join(logs_dir, f"rank{r}", "training_steps_10"), fresh_state()) for r in (0, 1)]
-    if not ckpt_lib.states_equal(final[0], final[1]):
-        raise SystemExit("[10] the ranks' train states differ after training")
-    nets = [torch.load(os.path.join(logs_dir, f"rank{r}", "play_net.pt"), map_location=dev)
-            for r in (0, 1)]
-    if nets[0].keys() != nets[1].keys() or not all(
-            torch.equal(nets[0][k], nets[1][k]) for k in nets[0]):
-        raise SystemExit("[10] the ranks' bf16 self-play nets differ")
-    restored = ckpt_lib.restore_checkpoint(os.path.join(ckpt_dir, "training_steps_10"),
-                                           fresh_state())
-    if not ckpt_lib.states_equal(restored, final[0]):
-        raise SystemExit("[10] training_steps_10 restores a state other than the ranks'")
-
-    # The first DP step against one step in this process on both ranks' rows.
-    batches = [np.load(os.path.join(logs_dir, f"rank{r}", "first_step.npz")) for r in (0, 1)]
-    if int(batches[0]["tid"]) != int(batches[1]["tid"]) or r0["first_step"] != r1["first_step"]:
-        raise SystemExit("[10] the ranks' first steps differ in transform or losses")
-    inputs = tuple(torch.from_numpy(np.concatenate([b[k] for b in batches])).to(dev)
-                   for k in ("states", "pis", "values"))
-
-    def params(state):
-        return torch.cat([p.detach().flatten().clone() for p in state.net.parameters()])
-
-    def one_process_step(dtype):
-        state = ckpt_lib.restore_checkpoint(
-            os.path.join(logs_dir, "rank0", "init", "training_steps_0"), fresh_state())
-        m = learner.make_train_step(dtype, cfg.train.argument_data)(
-            state, *inputs, int(batches[0]["tid"]))
-        return params(state), [float(m.policy_loss), float(m.value_loss)]
-
-    p_bf16, single = one_process_step(cfg.network.inference_dtype)
-    p_f32, _ = one_process_step("float32")
-    p0 = params(ckpt_lib.restore_checkpoint(
-        os.path.join(logs_dir, "rank0", "init", "training_steps_0"), fresh_state()))
-    p_dp = params(ckpt_lib.restore_checkpoint(
-        os.path.join(logs_dir, "rank0", "step1", "training_steps_1"), fresh_state()))
-    loss_err = max(abs(a - b) for a, b in zip(single, r0["first_step"]))
-    f32_norm = (p_f32 - p0).norm()
-    update_err = {"dp_vs_f32": float((p_dp - p_f32).norm() / f32_norm),
-                  "bf16_vs_f32": float((p_bf16 - p_f32).norm() / f32_norm),
-                  "dp_vs_bf16": float((p_dp - p_bf16).norm() / (p_bf16 - p0).norm())}
-    if (loss_err > DP_LOSS_ATOL
-            or update_err["dp_vs_f32"] > DP_UPDATE_FACTOR * update_err["bf16_vs_f32"]):
-        raise SystemExit(f"[10] first DP step vs one process on both ranks' rows: losses "
-                         f"{r0['first_step']} vs {single} (err {loss_err}, limit "
-                         f"{DP_LOSS_ATOL}); weight update's relative errors {update_err} "
-                         f"(DP vs float32 at most {DP_UPDATE_FACTOR} x bf16 vs float32)")
-    with open(os.path.join(logs_dir, "training.csv")) as f:
-        losses = [(float(r["policy_loss"]), float(r["value_loss"])) for r in csv.DictReader(f)]
-    if not losses or not all(math.isfinite(x) for pair in losses for x in pair):
-        raise SystemExit(f"[10] losses not finite: {losses}")
-
     out = {"config": "go9", "reduced": {"env.max_steps": 24, "training_steps": 10},
            "ranks": 2, "backend": "gloo", "selfplay_batch": BATCH, "train_batch": BATCH,
            "selfplay_moves": len(r0["moves"]), "exits": r0["exits"],
@@ -754,10 +867,7 @@ def dp_path(card, dev) -> dict:
            "fence_s": [x["fence_s"] for x in ranks], "fences": r0["fences"],
            "train_step_ms": [x["train_step_ms"] for x in ranks],
            "peak_memory_gib": [x["peak_memory_gib"] for x in ranks],
-           "launches": [x["launches"] for x in ranks], "first_step_losses": r0["first_step"],
-           "single_process_losses": single, "loss_err": loss_err,
-           "update_rel_err": update_err, "losses": losses,
-           "wall_s": wall}
+           "launches": [x["launches"] for x in ranks], **check, "wall_s": wall}
     loop_len = cfg.search.max_new_sims
     print(f"[10] go9 dp=2 via cli.train on {card}: 2 gloo ranks on {r0['device']} "
           f"(10 x 128 bf16, {BATCH // 2} games and {BATCH // 2} train rows a rank; "
@@ -770,19 +880,140 @@ def dp_path(card, dev) -> dict:
           + " / ".join(f"{x['train_step_ms']:.3f}" for x in ranks) + " ms per DP train step; "
           "peak memory " + " / ".join(f"{x['peak_memory_gib']:.2f}" for x in ranks)
           + f" GiB; {wall:.1f} s in cli.train", flush=True)
+    update_err = check["update_rel_err"]
     print(f"[10] ranks bit-equal after training (train state and bf16 self-play net), "
           f"training_steps_10 restored bit-equal here; first DP step losses "
-          f"{r0['first_step']} vs one process on both ranks' rows {single} (max err "
-          f"{loss_err:.2e} <= {DP_LOSS_ATOL}); its weight update {update_err['dp_vs_f32']:.4f} "
-          f"off the float32 step's (relative), one process's bf16 step "
+          f"{check['first_step_losses']} vs one process on both ranks' rows "
+          f"{check['single_process_losses']} (max err {check['loss_err']:.2e} <= "
+          f"{DP_LOSS_ATOL}); its weight update {update_err['ranks_vs_f32']:.4f} off the "
+          f"float32 step's (relative), one process's bf16 step "
           f"{update_err['bf16_vs_f32']:.4f} off, DP vs one process bf16 "
-          f"{update_err['dp_vs_bf16']:.4f}; losses {losses}", flush=True)
+          f"{update_err['ranks_vs_bf16']:.4f}; losses {check['losses']}", flush=True)
     print("[10] " + json.dumps(out), flush=True)
     shutil.rmtree(ckpt_dir)
     return out, [tuple(x["launches"]) for x in ranks]
 
 
-def replay_game(label, moves, result, dev, max_steps=24):
+def mdl_path(card, dev) -> dict:
+    """[11]: ``cli.train.main`` with ``parallel.dp=1, parallel.mdl=2`` on the
+    one card: two gloo ranks on ``cuda:0``, one model group, at go9 full
+    width (the stem, the 20 block convs, ``policy_conv``, ``policy_fc`` and
+    ``value_fc1`` split over the two; bf16, 200 sims, reuse,
+    ``max_new_sims=120``), ``MDL_BATCH`` games, ``env.max_steps=5`` and a
+    fence every move (so the games' 320 rows are counted on the 7th move),
+    a train batch of ``MDL_TRAIN_BATCH``, one generation of 4 steps and one
+    checkpoint, ``--no-eval``. The game length is the cut: two ranks sharing
+    one H100 took ~3.5 ms for each of a move's 2,904 gathers (gloo's
+    loopback transport), 14.2 s a move. ``parallel_run``'s checks (the first step's
+    losses within ``MDL_LOSS_ATOL``), and: 24 gathers a net evaluation, the
+    replicas' games, trees, replay rows, weights and net outputs with
+    equal digests, each rank's slices equal to the gathered net's, and the
+    checkpoint restored here into a whole bf16 net whose outputs on the
+    first ``MDL_NET_ROWS`` replay rows are within ``MDL_NET_ATOL`` of the
+    sharded net's. Returns the numbers and each rank's (K1, K2) launches."""
+    import copy
+
+    import torch
+
+    from alpha_zero_tpu_torch.models.resnet import to_inference_dtype
+
+    run_dir = os.path.join(HERE, "build", "chip_smoke_mdl")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
+    sets = ["parallel.dp=1", "parallel.mdl=2", f"parallel.selfplay_batch_size={MDL_BATCH}",
+            f"train.batch_size={MDL_TRAIN_BATCH}", "env.max_steps=5", "parallel.fence_interval=1",
+            f"train.min_games={MDL_BATCH}", f"train.games_per_ckpt={MDL_BATCH}",
+            "train.ckpt_interval=4", "train.max_training_steps=4",
+            f"run.ckpt_dir={ckpt_dir}", f"run.logs_dir={logs_dir}"]
+    cfg, ranks, wall, check, restored = parallel_run("[11]", dev, sets, 4, MDL_BATCH,
+                                                     MDL_LOSS_ATOL)
+    r0 = ranks[0]
+    if r0["mesh"] != [1, 2] or r0["sharded_layers"] != 24 or any(
+            x["games_a_step"] != MDL_BATCH for x in ranks):
+        raise SystemExit(f"[11] mesh {r0['mesh']}, {r0['sharded_layers']} sharded layers, "
+                         f"games a rank {[x['games_a_step'] for x in ranks]}")
+    if ranks[1]["digests"] != r0["digests"]:
+        raise SystemExit(f"[11] the replicas differ: {r0['digests']} / {ranks[1]['digests']}")
+    sharded = torch.load(os.path.join(logs_dir, "rank0", "net_outputs.pt"))
+    whole = to_inference_dtype(copy.deepcopy(restored.net), cfg.network.inference_dtype).eval()
+    with torch.no_grad():
+        o = whole(sharded["rows"].to(dev))
+    net_err = {"pi_logits": float((o.pi_logits.cpu() - sharded["pi_logits"]).abs().max()),
+               "value": float((o.value.cpu() - sharded["value"]).abs().max()),
+               "pi_logits_mean": float((o.pi_logits.cpu() - sharded["pi_logits"]).abs().mean()),
+               "argmax_agree": float((o.pi_logits.argmax(-1).cpu()
+                                      == sharded["pi_logits"].argmax(-1)).float().mean())}
+    if max(net_err["pi_logits"], net_err["value"]) > MDL_NET_ATOL:
+        raise SystemExit(f"[11] whole bf16 net from the checkpoint vs the sharded net on "
+                         f"{MDL_NET_ROWS} replay rows: {net_err} (limit {MDL_NET_ATOL})")
+    moves = len(r0["moves"])
+    forwards = sum(f for _, _, f, _ in r0["moves"])
+    out = {"config": "go9", "mesh": {"dp": 1, "mdl": 2},
+           "reduced": {"env.max_steps": 5, "selfplay_batch": MDL_BATCH,
+                       "train_batch": MDL_TRAIN_BATCH, "training_steps": 4},
+           "ranks": 2, "backend": "gloo", "selfplay_moves": moves, "exits": r0["exits"],
+           "selfplay_s": [x["selfplay_s"] for x in ranks],
+           "s_per_move": [x["selfplay_s"][0] / moves for x in ranks],
+           "gathers": [x["gathers"] for x in ranks], "gathers_a_forward": 24,
+           "gather_s": [x["gather_s"] for x in ranks],
+           "train_s": [x["generation_s"] for x in ranks],
+           "train_step_ms": [x["train_step_ms"] for x in ranks],
+           "peak_memory_gib": [x["peak_memory_gib"] for x in ranks],
+           "launches": [x["launches"] for x in ranks], "net_err": net_err,
+           "digests": r0["digests"], **check, "wall_s": wall}
+    loop_len = cfg.search.max_new_sims
+    update_err = check["update_rel_err"]
+    print(f"[11] go9 dp=1 x mdl=2 via cli.train on {card}: 2 gloo ranks on {r0['device']}, "
+          f"one model group (10 x 128 bf16, 24 of its layers split in two; {MDL_BATCH} games, "
+          f"env.max_steps=5); {moves} self-play moves a rank ({loop_len} K1 and "
+          f"{2 * loop_len} K2 launches and 24 gathers a net evaluation, {forwards} "
+          f"evaluations), left self-play on move {r0['exits'][0][0]} with "
+          f"{r0['exits'][0][2]} games; "
+          + " / ".join(f"{s:.3f}" for s in out["s_per_move"]) + " s a move; gathers took "
+          + " / ".join(f"{x['gather_s']:.2f}" for x in ranks) + " host s over the run "
+          "(self-play, training, checkpoints); train generation "
+          + " / ".join(f"{x['generation_s'][0]:.3f}" for x in ranks)
+          + " s, " + " / ".join(f"{x['train_step_ms']:.3f}" for x in ranks)
+          + f" ms per sharded train step at batch {MDL_TRAIN_BATCH}; peak memory "
+          + " / ".join(f"{x['peak_memory_gib']:.2f}" for x in ranks)
+          + f" GiB; {wall:.1f} s in cli.train", flush=True)
+    print(f"[11] replicas equal (digests of games, trees, replay rows, weights, net outputs), "
+          f"slices == the gathered net's, training_steps_4 restored bit-equal here; whole bf16 "
+          f"net vs sharded on {MDL_NET_ROWS} replay rows: logits max {net_err['pi_logits']:.4g}"
+          f" (mean {net_err['pi_logits_mean']:.3g}), value max {net_err['value']:.4g} (limit "
+          f"{MDL_NET_ATOL}), argmax agreement {net_err['argmax_agree']:.4f}; first sharded "
+          f"step losses {check['first_step_losses']} vs one process "
+          f"{check['single_process_losses']} (err {check['loss_err']:.2e} <= {MDL_LOSS_ATOL}); "
+          f"weight update {update_err['ranks_vs_f32']:.4f} off float32, one process bf16 "
+          f"{update_err['bf16_vs_f32']:.4f}", flush=True)
+    print("[11] " + json.dumps(out), flush=True)
+    shutil.rmtree(ckpt_dir)
+    return out, [tuple(x["launches"]) for x in ranks]
+
+
+def dryrun_path(card, dev) -> dict:
+    """[12]: ``dryrun_multichip(4, "cuda")``: four gloo ranks on ``cuda:0``,
+    dp=2 x mdl=2, one train step and one self-play move (5 K1 and 10 K2
+    launches in each rank, counted there); its OK line. Returns the
+    numbers and each rank's (K1, K2) launches."""
+    from alpha_zero_tpu_torch.parallel.dryrun import dryrun_config, dryrun_multichip
+
+    t0 = time.time()
+    result = dryrun_multichip(4, str(dev))
+    wall = time.time() - t0
+    loop_len = dryrun_config().search.num_simulations - 1
+    launches = [tuple(r["launches"]) for r in result["ranks"]]
+    if (result["dp"], result["mdl"]) != (2, 2) or set(launches) != {(loop_len, 2 * loop_len)}:
+        raise SystemExit(f"[12] mesh dp={result['dp']} mdl={result['mdl']}, launches "
+                         f"{launches}, expected ({loop_len}, {2 * loop_len}) in each rank")
+    out = {"line": result["line"], "ranks": 4, "launches": launches, "wall_s": wall}
+    print(f"[12] dry run on {card}: {result['line']} ({wall:.1f} s, 4 gloo ranks on "
+          f"{dev}; {loop_len} K1 and {2 * loop_len} K2 launches in each rank)", flush=True)
+    print("[12] " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def replay_game(label, moves, result, dev, max_steps=GAME_STEPS):
     """Replays ``moves`` through the host ``GoEnv`` on ``dev``: black and
     white alternate, every move legal, the game over at the end with
     ``result``."""
@@ -799,7 +1030,7 @@ def replay_game(label, moves, result, dev, max_steps=24):
 
 def match_path(card, dev, ckpt_dir) -> dict:
     """[9]: ``cli.match.main`` in-process between [8]'s checkpoints at go9
-    full width (``env.max_steps=24``), then one deterministic eval game;
+    full width (``env.max_steps=GAME_STEPS``), then one deterministic eval game;
     K1 and K2 against their plain versions on searched trees at B=1 and
     B=2, and timed at B=1 and B=64. Returns the numbers and the (K1, K2)
     launches of the match and of the eval game."""
@@ -825,7 +1056,7 @@ def match_path(card, dev, ckpt_dir) -> dict:
     black, white = (os.path.join(ckpt_dir, f"training_steps_{t}") for t in (10, TRAIN_STEPS))
     out_dir = os.path.join(HERE, "build", "chip_smoke_match")
     shutil.rmtree(out_dir, ignore_errors=True)
-    sets = ["env.max_steps=24"]
+    sets = [f"env.max_steps={GAME_STEPS}"]
     cfg = resolve_config("go9", sets)
     sims = cfg.search.num_simulations
 
@@ -911,7 +1142,7 @@ def match_path(card, dev, ckpt_dir) -> dict:
         if b != 2:
             times[b] = {"K1": select_bench.time_select(select, args, kw, 50),
                         "K2": graph_ms(lambda: writer(arrays, rows_, widx), 50)}
-    out = {"config": "go9", "reduced": {"env.max_steps": 24}, "match_games": MATCH_GAMES,
+    out = {"config": "go9", "reduced": {"env.max_steps": GAME_STEPS}, "match_games": MATCH_GAMES,
            "match_s": match_s, "match_game_s": match_s / MATCH_GAMES,
            "match_plies": len(plies),
            "match_ply_s": sum(t for _, _, t in plies) / len(plies),
@@ -922,7 +1153,7 @@ def match_path(card, dev, ckpt_dir) -> dict:
            "eval_ply_s": sum(t for _, _, t in eval_plies) / len(eval_plies),
            "k1_ms": {b: v["K1"] for b, v in times.items()},
            "k2_ms": {b: v["K2"] for b, v in times.items()}}
-    print(f"[9] go9 cli.match (10 x 128, bf16; env.max_steps=24 the only cut) on {card}: "
+    print(f"[9] go9 cli.match (10 x 128, bf16; env.max_steps={GAME_STEPS} the only cut) on {card}: "
           f"{MATCH_GAMES} games of training_steps_10 (black) vs _{TRAIN_STEPS} in "
           f"{match_s:.1f} s ({match_s / MATCH_GAMES:.3f} s per game, {len(plies)} plies of "
           f"{out['match_ply_s']:.3f} s, {sims - 1} K1 and {2 * (sims - 1)} K2 launches "
@@ -1245,6 +1476,16 @@ def main() -> None:
     dp, rank_launches = dp_path(card, dev)
     launches["go9_dp2"] = tuple(sum(x) for x in zip(*rank_launches))
 
+    # --- 11. The model axis: cli.train with parallel.mdl=2, two ranks on the card.
+    select.launches = writer.launches = 0
+    _, mdl_launches = mdl_path(card, dev)
+    launches["go9_mdl2"] = tuple(sum(x) for x in zip(*mdl_launches))
+
+    # --- 12. The dry run: dp=2 x mdl=2, four ranks on the card.
+    select.launches = writer.launches = 0
+    _, dryrun_launches = dryrun_path(card, dev)
+    launches["dryrun"] = tuple(sum(x) for x in zip(*dryrun_launches))
+
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with
     # the expand set and the single f32 array (vs index_copy_) beside it.
@@ -1256,6 +1497,7 @@ def main() -> None:
         "launches": sum(w for _, w in launches.values()),
         "launches_by_path": {k: w for k, (_, w) in launches.items()},
         "launches_by_rank_go9_dp2": [w for _, w in rank_launches],
+        "launches_by_rank_go9_mdl2": [w for _, w in mdl_launches],
         "probe_launches": scatter_launches["write_rows"],
         "max_abs_err": scatter_err["scatter_rows"],
         "ms": mat["graph_ms"],
@@ -1298,6 +1540,7 @@ def main() -> None:
         "launches": sum(k1 for k1, _ in launches.values()),
         "launches_by_path": {k: k1 for k, (k1, _) in launches.items()},
         "launches_by_rank_go9_dp2": [k1 for k1, _ in rank_launches],
+        "launches_by_rank_go9_mdl2": [k1 for k1, _ in mdl_launches],
         "max_abs_err": max_err,
         "ms": times["ms"],
         "cold_ms": times["cold_ms"],

@@ -41,8 +41,9 @@ def _imports(path):
 # The evaluator path's modules, each a copy or port of its JAX namesake.
 EVAL_PATH = ("eval/__init__.py", "eval/elo.py", "eval/dataset.py", "eval/match.py",
              "eval/evaluator.py", "envs/host.py", "cli/play.py", "cli/match.py")
-# The data-parallel path's modules.
-PARALLEL_PATH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py")
+# The data- and model-parallel path's modules.
+PARALLEL_PATH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+                 "parallel/dryrun.py")
 
 
 def test_port_sources_import_nothing_of_jax():

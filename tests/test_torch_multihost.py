@@ -14,7 +14,10 @@ timeout, so a hang fails one test.
   each with its own games, resuming a single-process checkpoint.
 - ``Trainer.profile`` writes a Chrome trace naming the self-play and
   train ops.
-- ``parallel.mdl=2`` raises, naming ROADMAP A10b.
+- A model axis that does not divide the ranks raises ``ValueError``, as
+  JAX's ``make_mesh`` does, and a Trainer asked for ``parallel.mdl=2``
+  outside such a process group refuses to start (the model axis itself
+  runs in ``tests/test_torch_model_axis.py``).
 
 The micro sizes are ``tests/test_parallel.py:140``'s (5x5 Gomoku, 3 to
 win, 1 block x 8 filters, 8 simulations), with ``mdl=1``.
@@ -86,7 +89,7 @@ def _launch(argv):
 
 def _wait(procs):
     """Waits for every process; kills all of them (and their ranks) if one
-    fails or the run outlasts ``RUN_TIMEOUT_S``."""
+    fails or the run outlasts ``RUN_TIMEOUT_S``. Returns their outputs."""
     try:
         outs = [p.communicate(timeout=RUN_TIMEOUT_S)[0] for p in procs]
     except subprocess.TimeoutExpired:
@@ -99,6 +102,7 @@ def _wait(procs):
     assert outs is not None, f"the run outlasted {RUN_TIMEOUT_S} s"
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-4000:]
+    return outs
 
 
 def _rank_summaries(tmp_path, world=2):
@@ -204,8 +208,15 @@ def test_profile_writes_a_trace_of_selfplay_and_training(tmp_path):
 
 
 def test_model_axis_raises_naming_the_roadmap_item(tmp_path):
-    sets = _sets(tmp_path, "parallel.mdl=2")
-    with pytest.raises(NotImplementedError, match="A10b"):
+    # Three coordinator ranks cannot form model groups of 2: cli.train and
+    # the Trainer raise before any process group is started.
+    sets = _sets(tmp_path, "parallel.mdl=2", "parallel.coordinator_address=localhost:1",
+                 "parallel.num_processes=3", "parallel.process_id=0")
+    with pytest.raises(ValueError, match="3 ranks not divisible by mdl=2"):
         cli_train.main(_argv(sets, False))
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="3 ranks not divisible by mdl=2"):
         pipeline.Trainer(resolve_config("gomoku9", sets), device="cpu")
+    # parallel.mdl=2 without its two ranks' process group.
+    with pytest.raises(RuntimeError, match="start the ranks with cli.train"):
+        pipeline.Trainer(resolve_config("gomoku9", _sets(tmp_path, "parallel.mdl=2")),
+                         device="cpu")

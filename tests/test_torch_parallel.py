@@ -6,8 +6,9 @@ timeout (``tests/torch_dp_ranks.py``), so a hang fails one test.
   ``broadcast_from_host0``, ``broadcast_tensors``, the differentiable
   ``all_reduce_sum`` and ``average_gradients``, at 2 and 3 ranks; the rank
   helpers and the collectives without a process group.
-- The mesh: ``make_mesh``, the ``mdl > 1`` error, the rank -> device map
-  and the backend rule.
+- The mesh: ``make_mesh`` at ``mdl`` 1 and 2 with JAX's rank layout, its
+  error when ``mdl`` does not divide the ranks, the rank -> device map and
+  the backend rule.
 - DP step parity: the JAX multihost worker's equivalence batch (gomoku 5x5,
   1 block x 8 filters, seeds 123 / 7, 16 rows) in float32, 8 rows a rank.
   After one step both ranks' losses, parameters, BN running statistics and
@@ -32,7 +33,7 @@ import torch
 from alpha_zero_tpu.config import ResignConfig as JaxResignConfig
 from alpha_zero_tpu.config import get_config as jax_get_config
 from alpha_zero_tpu.models.resnet import build_network as jax_build_network
-from alpha_zero_tpu.ops import symmetry as jax_symmetry
+from alpha_zero_tpu.parallel import mesh as jax_mesh_lib
 from alpha_zero_tpu.training import learner as jax_learner
 from alpha_zero_tpu.training.pipeline import ResignController as JaxResignController
 from alpha_zero_tpu_torch import config as config_lib
@@ -43,6 +44,7 @@ from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
 from alpha_zero_tpu_torch.training import pipeline
 
 import torch_dp_ranks
+from torch_parity import jax_np_state, jax_transform_id
 
 F32_ATOL = 1e-5  # tests/test_torch_learner.py's bound on float32 steps
 G = 16           # the global batch; each of the 2 ranks steps on 8 rows
@@ -93,8 +95,15 @@ def test_collectives_without_a_process_group_return_their_input():
 
 def test_make_mesh_and_the_model_axis():
     assert mesh_lib.make_mesh(4) == mesh_lib.Mesh(dp=4, mdl=1)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        mesh_lib.make_mesh(2, mdl=2)
+    mesh = mesh_lib.make_mesh(8, mdl=2)
+    assert mesh == mesh_lib.Mesh(dp=4, mdl=2) and mesh.world == 8
+    # Rank r sits where JAX's make_mesh puts device r: (r // mdl, r % mdl).
+    jax_mesh = jax_mesh_lib.make_mesh(n_devices=8, mdl=2)
+    for r, device in enumerate(jax.devices()[:8]):
+        (where,) = np.argwhere(jax_mesh.devices == device)
+        assert mesh.coords(r) == tuple(where)
+    with pytest.raises(ValueError, match="not divisible by mdl=2"):
+        mesh_lib.make_mesh(3, mdl=2)
     with pytest.raises(ValueError):
         mesh_lib.make_mesh(0)
 
@@ -121,19 +130,6 @@ def test_rank_device_and_backend(monkeypatch, device, local_rank, ranks, cards, 
 # ---------------------------------------------------------------------------
 
 
-def _jax_transform_id(key) -> int:
-    """The transform id ``apply_random_transformation(key, ...)`` applies."""
-    rng_do, rng_pick = jax.random.split(key)
-    pick = int(jax.random.randint(rng_pick, (), 0, len(jax_symmetry.REFERENCE_TRANSFORMS)))
-    return 0 if bool(jax.random.bernoulli(rng_do, 0.5)) else jax_symmetry.REFERENCE_TRANSFORMS[pick]
-
-
-def _np_state(state):
-    return jax.tree.map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats,
-                                     "opt_state": state.opt_state,
-                                     "training_steps": state.training_steps})
-
-
 @pytest.fixture(scope="module")
 def jax_single_step():
     """The JAX package's step on all 16 rows in one process, as in
@@ -156,10 +152,10 @@ def jax_single_step():
     pis /= pis.sum(-1, keepdims=True)
     values = rng.choice([-1.0, 1.0], size=(G,)).astype(np.float32)
     key = jax.random.PRNGKey(7)
-    init = _np_state(state0)  # before the step, which donates state0's buffers
+    init = jax_np_state(state0)  # before the step, which donates state0's buffers
     state1, metrics = step(state0, states, pis, values, key)
-    return {"state0": init, "state1": _np_state(state1),
-            "batch": dict(states=states, pis=pis, values=values, tid=_jax_transform_id(key)),
+    return {"state0": init, "state1": jax_np_state(state1),
+            "batch": dict(states=states, pis=pis, values=values, tid=jax_transform_id(key)),
             "losses": (float(metrics.policy_loss), float(metrics.value_loss))}
 
 
@@ -170,7 +166,7 @@ def _dp_step(tmp_path, ref, local_moments):
     ckpt_lib.save_checkpoint(str(tmp_path / "init"), init, 0)
     np.savez(tmp_path / "batch.npz", **ref["batch"])
     torch_dp_ranks.spawn_ranks(torch_dp_ranks.dp_step, 2, multihost.local_address(),
-                               str(tmp_path), local_moments)
+                               str(tmp_path), "local_moments" if local_moments else None)
     out = []
     for rank in range(2):
         with open(tmp_path / f"rank{rank}.json") as f:

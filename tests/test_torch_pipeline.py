@@ -235,16 +235,17 @@ def test_resign_threshold_continuity_across_resume(tmp_path):
 
 
 def test_multi_device_training_is_not_ported(tmp_path):
-    """The model axis is not ported (ROADMAP A10b); data parallelism is
-    (``tests/test_torch_multihost.py``), but only across ranks of a process
-    group: a Trainer built in one process for dp=2 or a coordinator raises."""
+    """Data and model parallelism run only across the ranks of a process
+    group (``tests/test_torch_multihost.py``,
+    ``tests/test_torch_model_axis.py``): a Trainer built in one process for
+    mdl=2, dp=2 or a coordinator raises, naming both layouts."""
     cfg = micro_config(tmp_path)
-    bad = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, mdl=2))
-    with pytest.raises(NotImplementedError, match="not ported yet.*A10b"):
-        pipeline.Trainer(bad, device="cpu")
-    for parallel in (dict(dp=2), dict(coordinator_address="localhost:1234", num_processes=2)):
+    for parallel, want in ((dict(mdl=2), "dp=1, mdl=2"), (dict(dp=2), "dp=2, mdl=1"),
+                           (dict(coordinator_address="localhost:1234", num_processes=2),
+                            "dp=2, mdl=1")):
         bad = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **parallel))
-        with pytest.raises(RuntimeError, match="2 data-parallel ranks and the process group has 1"):
+        with pytest.raises(RuntimeError, match=rf"asks for Mesh\({want}\) and the process "
+                                               r"group has Mesh\(dp=1, mdl=1\)"):
             pipeline.Trainer(bad, device="cpu")
 
 

@@ -21,26 +21,9 @@ from alpha_zero_tpu_torch.eval.dataset import build_eval_dataset
 from alpha_zero_tpu_torch.models.resnet import (AlphaZeroNet, build_network,
                                                 params_from_flax, to_inference_dtype)
 
+from torch_parity import flax_variables
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _flax_variables(net, obs, seed):
-    """Initialized variables with randomized BN scale/bias/statistics, so
-    every BN term of the conversion shows in the output."""
-    variables = net.init(jax.random.PRNGKey(seed), jnp.asarray(obs), train=False)
-    rng = np.random.RandomState(seed)
-
-    def perturb(path, x):
-        name = path[-1].key
-        x = np.asarray(x)
-        if name in ("scale", "var"):
-            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        if name in ("bias", "mean"):
-            return rng.uniform(-0.3, 0.3, x.shape).astype(np.float32)
-        return x
-
-    return {k: jax.tree_util.tree_map_with_path(perturb, variables[k])
-            for k in ("params", "batch_stats")}
 
 
 def _port_net(variables, board_size, num_actions, blocks, filters, gomoku,
@@ -62,7 +45,7 @@ def test_float32_matches_flax(board_size, gomoku, blocks, filters):
     obs = rng.randint(0, 2, size=(6, board_size, board_size, 5)).astype(np.int8)
     flax_net = FlaxNet(num_actions=num_actions, num_res_blocks=blocks,
                        num_filters=filters, num_fc_units=filters, gomoku=gomoku)
-    variables = _flax_variables(flax_net, obs, seed=1)
+    variables = flax_variables(flax_net, obs, seed=1)
     ref = flax_net.apply(variables, jnp.asarray(obs), train=False)
     net = _port_net(variables, board_size, num_actions, blocks, filters, gomoku)
     with torch.no_grad():
@@ -83,7 +66,7 @@ def test_bfloat16_port_tracks_float32_flax():
     obs = rng.randint(0, 2, size=(6, board_size, board_size, 5)).astype(np.int8)
     flax_net = FlaxNet(num_actions=num_actions, num_res_blocks=2, num_filters=16,
                        num_fc_units=16)
-    variables = _flax_variables(flax_net, obs, seed=2)
+    variables = flax_variables(flax_net, obs, seed=2)
     ref = flax_net.apply(variables, jnp.asarray(obs), train=False)
     net = _port_net(variables, board_size, num_actions, 2, 16, False, torch.bfloat16)
     with torch.no_grad():

@@ -51,6 +51,50 @@ def assert_tree_equal(ref, out, atol: dict | None = None, path: str = "") -> Non
         np.testing.assert_allclose(ref, out, rtol=0, atol=tol, err_msg=path)
 
 
+def flax_variables(net, obs, seed):
+    """Initialized variables with randomized BN scale/bias/statistics, so
+    every BN term of the conversion shows in the output."""
+    import jax
+    import jax.numpy as jnp
+
+    variables = net.init(jax.random.PRNGKey(seed), jnp.asarray(obs), train=False)
+    rng = np.random.RandomState(seed)
+
+    def perturb(path, x):
+        name = path[-1].key
+        x = np.asarray(x)
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if name in ("bias", "mean"):
+            return rng.uniform(-0.3, 0.3, x.shape).astype(np.float32)
+        return x
+
+    return {k: jax.tree_util.tree_map_with_path(perturb, variables[k])
+            for k in ("params", "batch_stats")}
+
+
+def jax_transform_id(key) -> int:
+    """The transform id the JAX package's ``apply_random_transformation(key,
+    ...)`` applies."""
+    import jax
+
+    from alpha_zero_tpu.ops import symmetry
+
+    rng_do, rng_pick = jax.random.split(key)
+    pick = int(jax.random.randint(rng_pick, (), 0, len(symmetry.REFERENCE_TRANSFORMS)))
+    return 0 if bool(jax.random.bernoulli(rng_do, 0.5)) else symmetry.REFERENCE_TRANSFORMS[pick]
+
+
+def jax_np_state(state) -> dict:
+    """A JAX ``TrainState`` as the numpy trees ``train_state_from_flax``
+    reads (device arrays, sharded or not, copied to the host)."""
+    import jax
+
+    return jax.tree.map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats,
+                                     "opt_state": state.opt_state,
+                                     "training_steps": state.training_steps})
+
+
 class JaxGumbels:
     """The move-sampling draws of the JAX package's lockstep games from
     ``PRNGKey(seed)``: at ply p, ``rng, sub = split(rng)``, then
