@@ -9,18 +9,20 @@ function's counterpart is found under the same path:
   train-mode BatchNorm), plus a loader for Flax weights.
 - ``ops``      — hand-written CUDA kernels (``csrc/``), their build, their
   wrappers and plain PyTorch versions; dihedral augmentation.
-- ``search``   — batched MCTS over fixed-capacity array trees.
+- ``search``   — batched MCTS over fixed-capacity array trees, and the
+  serial object-tree oracle it is checked against (``search/reference.py``).
 - ``training`` — the batched self-play step, the learner, replay,
   checkpoints and the ``Trainer``.
 - ``eval``     — Elo, the pro-game dataset, matches and the evaluator.
 - ``parallel`` — data- and model-parallel training over
   ``torch.distributed``, and the multi-rank dry run.
-- ``cli``      — ``python -m alpha_zero_tpu_torch.cli.{train,play,match}``.
+- ``cli``      — ``python -m alpha_zero_tpu_torch.cli.{train,play,match,
+  analysis,plot}``; ``cli/gui.py``, the Tk board client of ``cli.play
+  --gui`` and ``--ai_vs_ai``.
 
-Not ported yet: the gui/plot/analysis CLIs.
-
-The package imports torch and numpy only — never JAX, Flax or the JAX
-package. Entry points run on ``device="cuda"`` unless the caller asks for
+The package imports torch and numpy — never JAX, Flax or the JAX
+package; ``cli/plot.py`` and two ``cli/analysis.py`` commands also need
+pandas and matplotlib, and ``cli/gui.py`` tkinter. Entry points run on ``device="cuda"`` unless the caller asks for
 ``"cpu"``.
 """
 

@@ -4,11 +4,9 @@ The port of ``alpha_zero_tpu.cli.play``: a terminal game with GTP-style
 input against the net of a port checkpoint (``training_steps_{t}``, as
 ``cli.train`` writes them; ``tools/ckpt_to_torch.py`` converts the JAX
 package's orbax checkpoints). The agent searches without noise and plays
-its most visited move. The human plays black unless ``--white``. Runs on
-``--device`` (default ``cuda``).
-
-The Tk GUI (``--gui``, ``--ai_vs_ai``) needs ``cli/gui.py``, which is not
-ported yet: those options exit with an error.
+its most visited move. The human plays black unless ``--white``. ``--gui``
+plays in the Tk GUI (``cli/gui.py``) instead, and ``--ai_vs_ai`` shows the
+agent playing itself there. Runs on ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -87,18 +85,21 @@ def main(argv=None) -> None:
     add_config_args(parser)
     parser.add_argument("--ckpt", default="", help="checkpoint path (untrained net if empty)")
     parser.add_argument("--white", action="store_true", help="human plays white")
-    parser.add_argument("--gui", action="store_true",
-                        help="use the Tk GUI (not ported yet: exits with an error)")
+    parser.add_argument("--gui", action="store_true", help="use the Tk GUI")
     parser.add_argument("--ai_vs_ai", action="store_true",
-                        help="watch the agent play itself in the GUI (not ported yet)")
+                        help="watch the agent play itself (GUI)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
     args = parser.parse_args(argv)
-    if args.gui or args.ai_vs_ai:
-        parser.error("--gui and --ai_vs_ai need the Tk GUI (cli/gui.py), which is not "
-                     "ported to alpha_zero_tpu_torch yet; play in the terminal without them")
     cfg = resolve_config(args.config, args.set)
-    terminal_play(cfg, args.ckpt, human_is_black=not args.white, device=args.device)
+
+    if args.gui or args.ai_vs_ai:
+        from alpha_zero_tpu_torch.cli.gui import gui_play
+
+        gui_play(cfg, args.ckpt, human_is_black=not args.white, ai_vs_ai=args.ai_vs_ai,
+                 device=args.device)
+    else:
+        terminal_play(cfg, args.ckpt, human_is_black=not args.white, device=args.device)
 
 
 if __name__ == "__main__":

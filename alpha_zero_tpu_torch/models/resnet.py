@@ -362,3 +362,11 @@ def params_from_flax(variables_np: dict) -> dict:
     _dense("value_fc1", params["Dense_1"], out)
     _dense("value_fc2", params["Dense_2"], out)
     return out
+
+
+def count_params(net: nn.Module) -> int:
+    """The number of elements in ``net.parameters()``: what Flax's
+    ``params`` collection holds. BatchNorm's running statistics are
+    buffers (Flax's ``batch_stats``) and are not counted. For a net built
+    with a ``mesh`` of ``mdl > 1``, the count of this rank's slices."""
+    return sum(p.numel() for p in net.parameters())

@@ -47,8 +47,8 @@ card against its CPU path on small inputs, then drives the port's paths:
 - [10] data parallel: ``cli.train.main`` with ``parallel.dp=2`` on the one
   card (two ranks on ``cuda:0`` over gloo, spawned by ``cli.train``; their
   instrument is ``rank_checks``), go9 full width, 512 games and 512
-  train rows a rank, ``env.max_steps=24``, one generation of 10 steps,
-  ``--no-eval``: 120 K1 and 240 K2 launches in every move of each rank,
+  train rows a rank, ``env.max_steps=GAME_STEPS``, one generation of 10
+  steps, ``--no-eval``: 120 K1 and 240 K2 launches in every move of each rank,
   both ranks leaving self-play on the same move with the same global game
   count, the ranks' train states and self-play nets bit-equal, the
   checkpoint restored bit-equal here, the first DP step's losses and weight
@@ -73,6 +73,24 @@ card against its CPU path on small inputs, then drives the port's paths:
 - [12] the dry run: ``parallel/dryrun.py:dryrun_multichip(4, "cuda")``,
   four gloo ranks on ``cuda:0`` at dp=2 x mdl=2 (one train step, one
   self-play move on 5x5 Go), its OK line, 5 K1 and 10 K2 launches a rank.
+- [13] ``cli.analysis`` through its ``main``: ``params --device cuda``
+  (all four configs' nets built on the card, the counts equal to the
+  CPU's), ``score-demo --device cuda`` (the seven boards in one batched
+  ``area_counts`` call, bit-equal to the CPU's) and ``puct``. Not
+  ``aggregate-*``, ``filter-sgf`` or ``cli.plot``: they need pandas or
+  matplotlib, which the card's machine lacks (the CPU tests hold them to
+  the JAX package). Then ``cli.play.main(["--config", "go19_jumbo",
+  "--ai_vs_ai", "--device", "cuda"])``, the GUI's AI-vs-AI game at full
+  width (19 x 256 bf16 net of seed 0, 800 simulations on fresh trees,
+  T=801, A=362, B=1) for ``GUI_PLIES`` plies, under ``fake_tkinter``, a
+  recording stand-in for the ``tkinter`` module (the machine has no
+  display): it replaces the display, never the device, and the AI's
+  searches run on the card through K1 and K2. Checked: 799 K1 and 1,598 K2
+  launches a ply, every move accepted by the host ``GoEnv`` and replayed
+  to the same board by a fresh one on the CPU, the board and header drawn
+  after each ply; seconds a ply and peak memory (above what earlier phases
+  hold); K1 and K2 bit-equal to their plain versions on the last ply's
+  searched tree and timed there.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -84,14 +102,15 @@ calls with the host's dispatch
 the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
-kernels' launch counts are set to 0 before each of [5], [7], [8], [9] and
-[10], [11] and [12] (in each of their ranks) and read after it;
+kernels' launch counts are set to 0 before each of [5], [7], [8], [9],
+[13] and [10], [11] and [12] (in each of their ranks) and read after it;
 ``launches`` sums them,
 ``launches_by_path`` splits them (``go9_training`` is [8]'s self-play and
 profiled move, ``go9_eval`` its evaluation plies and [9]'s eval game,
 ``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks,
 ``go9_mdl2`` [11]'s and ``dryrun`` [12]'s four, each counted in its own
-process and carried back).
+process and carried back, ``go19_gui`` [13]'s GUI game). ``go19_jumbo_b1_*``
+are K1's and K2's times on [13]'s searched tree.
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -116,11 +135,14 @@ TIMED_MOVES = 3
 GOMOKU_TIMED_MOVES = 2
 TRAIN_STEPS = 20
 MATCH_GAMES = 64
-# [8]'s and [9]'s games end at this many moves. 24 until the model axis
-# added [11] and [12]: their evaluations and matches, launch-bound at 2-4 s
-# a ply, took 600 s of a 1287 s run on a slower card, past the 1200 s the
-# script has.
+# [8]'s, [9]'s and [10]'s games end at this many moves. 24 until the model
+# axis added [11] and [12]: their evaluations and matches, launch-bound at
+# 2-4 s a ply, took 600 s of a 1287 s run on a slower card, past the 1200 s
+# the script has. [10] kept 24 until [13] added go19_jumbo's GUI game.
 GAME_STEPS = 12
+# [13]'s AI-vs-AI game stops after one move of each side: a go19_jumbo ply
+# is an 800-simulation search at B=1, launch-bound like go9's 2-4 s ply.
+GUI_PLIES = 2
 # [10]'s first DP step (bf16 compute, two ranks of 512 rows) against one
 # step of the same net on the 1024 rows in one process: cuDNN picks its
 # convolution algorithms per batch size, so bf16 activations may round
@@ -843,15 +865,16 @@ def dp_path(card, dev) -> dict:
     """[10]: ``cli.train.main`` with ``parallel.dp=2`` on the one card: two
     gloo ranks on ``cuda:0`` at go9 full width (bf16, 200 sims, reuse,
     ``max_new_sims=120``; ``selfplay_batch_size=1024``, 512 games a rank;
-    ``train.batch_size=1024``, 512 rows a rank), ``env.max_steps=24``, one
-    generation of 10 steps, ``--no-eval``, checked by ``parallel_run``
+    ``train.batch_size=1024``, 512 rows a rank), ``env.max_steps=GAME_STEPS``,
+    one generation of 10 steps, ``--no-eval``, checked by ``parallel_run``
     (the first step's losses within ``DP_LOSS_ATOL``). Returns the numbers
     and each rank's (K1, K2) launches."""
     run_dir = os.path.join(HERE, "build", "chip_smoke_dp")
     shutil.rmtree(run_dir, ignore_errors=True)
     ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
     sets = ["parallel.dp=2", f"parallel.selfplay_batch_size={BATCH}",
-            f"train.batch_size={BATCH}", "env.max_steps=24", f"train.min_games={BATCH}",
+            f"train.batch_size={BATCH}", f"env.max_steps={GAME_STEPS}",
+            f"train.min_games={BATCH}",
             f"train.games_per_ckpt={BATCH}", "train.ckpt_interval=10",
             "train.max_training_steps=10", f"run.ckpt_dir={ckpt_dir}",
             f"run.logs_dir={logs_dir}"]
@@ -859,7 +882,7 @@ def dp_path(card, dev) -> dict:
     r0 = ranks[0]
     if [x["games_a_step"] for x in ranks] != [BATCH // 2] * 2 or r0["world"] != 2:
         raise SystemExit(f"[10] games a rank {[x['games_a_step'] for x in ranks]}")
-    out = {"config": "go9", "reduced": {"env.max_steps": 24, "training_steps": 10},
+    out = {"config": "go9", "reduced": {"env.max_steps": GAME_STEPS, "training_steps": 10},
            "ranks": 2, "backend": "gloo", "selfplay_batch": BATCH, "train_batch": BATCH,
            "selfplay_moves": len(r0["moves"]), "exits": r0["exits"],
            "selfplay_s": [x["selfplay_s"] for x in ranks],
@@ -871,7 +894,8 @@ def dp_path(card, dev) -> dict:
     loop_len = cfg.search.max_new_sims
     print(f"[10] go9 dp=2 via cli.train on {card}: 2 gloo ranks on {r0['device']} "
           f"(10 x 128 bf16, {BATCH // 2} games and {BATCH // 2} train rows a rank; "
-          f"env.max_steps=24); {len(r0['moves'])} self-play moves a rank ({loop_len} K1 and "
+          f"env.max_steps={GAME_STEPS}); {len(r0['moves'])} self-play moves a rank "
+          f"({loop_len} K1 and "
           f"{2 * loop_len} K2 launches each), both ranks left self-play on move "
           f"{r0['exits'][0][0]} with {r0['exits'][0][2]} games; self-play "
           + " / ".join(f"{x['selfplay_s'][0]:.2f}" for x in ranks) + " s, train generation "
@@ -1010,6 +1034,257 @@ def dryrun_path(card, dev) -> dict:
     print(f"[12] dry run on {card}: {result['line']} ({wall:.1f} s, 4 gloo ranks on "
           f"{dev}; {loop_len} K1 and {2 * loop_len} K2 launches in each rank)", flush=True)
     print("[12] " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def fake_tkinter(plies: int = 0):
+    """A recording stand-in for the ``tkinter`` module, to be placed in
+    ``sys.modules`` before a ``BoardGameGui`` is made (the GUIs of both
+    packages import tkinter inside ``__init__``). It replaces the display,
+    never the device: the AI's moves run where the GUI's env and net are.
+
+    Its widgets record every ``create_*``, ``delete`` and ``config`` call in
+    ``calls`` as ``(method, args, kwargs)``; ``buttons`` maps each button's
+    text to its command and ``bindings`` each bound event to its handler.
+    ``Tk.after`` queues its callback (the GUI's ``play``). ``Tk.mainloop``
+    runs the queue until the GUI's game has ``plies`` moves, or is over and
+    announced, then returns; ``gui`` is then the GUI it ran.
+    ``run_pending()`` runs the callbacks queued so far, once each."""
+    import collections
+    import types
+
+    tk = types.ModuleType("tkinter")
+    tk.LEFT = "left"
+    tk.calls, tk.buttons, tk.bindings, tk.gui = [], {}, {}, None
+    queue = collections.deque()
+
+    class Widget:
+        def __init__(self, master=None, **kw):
+            if "command" in kw:
+                tk.buttons[kw["text"]] = kw["command"]
+
+        def pack(self, **kw):
+            pass
+
+        def config(self, **kw):
+            tk.calls.append(("config", (), kw))
+
+        def delete(self, *args):
+            tk.calls.append(("delete", args, {}))
+
+        def bind(self, event, handler):
+            tk.bindings[event] = handler
+
+        def __getattr__(self, name):
+            if not name.startswith("create_"):
+                raise AttributeError(name)
+            return lambda *args, **kw: tk.calls.append((name, args, kw))
+
+    class Tk(Widget):
+        def title(self, text):
+            pass
+
+        def after(self, ms, callback):
+            queue.append(callback)
+
+        def mainloop(self):
+            while queue:
+                callback = queue.popleft()
+                callback()
+                tk.gui = callback.__self__
+                env = tk.gui.env
+                if env.steps >= plies or (env.is_game_over() and tk.gui.game_over_announced):
+                    return
+
+    def run_pending():
+        for _ in range(len(queue)):
+            queue.popleft()()
+
+    tk.Tk, tk.Label, tk.Canvas, tk.Frame, tk.Button = Tk, Widget, Widget, Widget, Widget
+    tk.run_pending = run_pending
+    return tk
+
+
+def check_gui_drawing(label, calls, boards, stone_r):
+    """The recorded GUI calls after each ply: the canvas cleared and drawn
+    again with one stone per stone of ``boards[k]`` (the board after ply
+    k + 1; the first drawing is of the empty board), and the header of each
+    step."""
+    draws = [i for i, (name, args, _) in enumerate(calls) if name == "delete" and args == ("all",)]
+    headers = [kw["text"] for name, _, kw in calls if name == "config"]
+    if len(draws) != len(boards) + 1 or len(headers) != len(boards) + 1:
+        raise SystemExit(f"{label}: {len(draws)} drawings and {len(headers)} headers for "
+                         f"{len(boards)} plies")
+    for k, start in enumerate(draws):
+        end = draws[k + 1] if k + 1 < len(draws) else len(calls)
+        stones = sum(1 for name, args, kw in calls[start:end]
+                     if name == "create_oval" and args[2] - args[0] == 2 * stone_r)
+        want = int((boards[k - 1] != 0).sum()) if k else 0
+        if stones != want or f"to move (step {k})" not in headers[k]:
+            raise SystemExit(f"{label}: drawing {k} has {stones} stones (board {want}), "
+                             f"header {headers[k]!r}")
+
+
+def gui_path(card, dev) -> dict:
+    """[13]: ``cli.analysis`` through its ``main`` (``params`` on the card
+    against the CPU's counts, ``score-demo`` on the card bit-equal to the
+    CPU, ``puct``), then ``cli.play.main(["--config", "go19_jumbo",
+    "--ai_vs_ai", ...])`` under ``fake_tkinter`` for ``GUI_PLIES`` plies at
+    full width (19 x 256 bf16 net of seed 0, 800 simulations on fresh
+    trees, T=801, A=362, B=1): 799 K1 and 1,598 K2 launches a ply, every
+    move accepted by the host ``GoEnv`` and replayed to the same board by a
+    fresh one on the CPU, the board and header drawn after each ply; then
+    K1 and K2 on the last ply's searched tree, bit-equal to their plain
+    versions and timed. Returns the numbers and the GUI run's (K1, K2)
+    launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.cli import analysis
+    from alpha_zero_tpu_torch.cli import play as cli_play
+    from alpha_zero_tpu_torch.cli.gui import STONE_R
+    from alpha_zero_tpu_torch.envs.host import GoEnv
+    from alpha_zero_tpu_torch.eval import evaluator as evaluator_lib
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.search import mcts
+    from alpha_zero_tpu_torch.tools import dma_probe, select_bench
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+    from alpha_zero_tpu_torch.utils.device import HBM_BYTES_PER_S, L2_BYTES, graph_ms, time_ms
+
+    def analysis_out(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            analysis.main(list(argv))
+        return out.getvalue()
+
+    # cli.analysis: the commands that need neither pandas nor matplotlib.
+    t0 = time.time()
+    params = analysis_out("params", "--device", str(dev))
+    names = [line.split()[0] for line in params.splitlines()]
+    if names != sorted(config_lib.CONFIGS) or params != analysis_out("params", "--device", "cpu"):
+        raise SystemExit(f"[13] analysis params on the card != CPU:\n{params}")
+    areas = analysis.score_demo_areas(dev)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(areas, analysis.score_demo_areas("cpu"))):
+        raise SystemExit("[13] score-demo areas on the card != CPU")
+    demo = analysis_out("score-demo", "--device", str(dev))
+    if demo != analysis_out("score-demo", "--device", "cpu") or demo.count("computed") != 7:
+        raise SystemExit(f"[13] score-demo on the card != CPU:\n{demo}")
+    puct = analysis_out("puct")
+    if len(puct.splitlines()) != 9:
+        raise SystemExit(f"[13] analysis puct:\n{puct}")
+    analysis_s = time.time() - t0
+    print(f"[13] cli.analysis on {card}: params ({analysis_s:.1f} s for the three commands) "
+          f"== CPU:\n{params.rstrip()}", flush=True)
+    print(f"[13] score-demo areas on the card bit-equal to the CPU "
+          f"(black {areas[0].tolist()}, white {areas[1].tolist()}); puct printed", flush=True)
+
+    # The GUI's AI-vs-AI game at go19_jumbo full width, on the card.
+    cfg = config_lib.go19_jumbo()
+    sims = cfg.search.num_simulations
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    plies, trees = [], []
+    make_move_fn, search = evaluator_lib.make_eval_move_fn, mcts.batched_search
+
+    def keep_tree(*args, **kwargs):
+        result, tree = search(*args, return_trees=True, **kwargs)
+        trees[:] = [tree]
+        return result
+
+    tk = fake_tkinter(GUI_PLIES)
+    saved_tk = sys.modules.get("tkinter")
+    evaluator_lib.make_eval_move_fn = lambda *a, **k: counting(make_move_fn(*a, **k), plies)
+    mcts.batched_search = keep_tree
+    sys.modules["tkinter"] = tk
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    k0 = (select.launches, writer.launches)
+    t0 = time.time()
+    try:
+        cli_play.main(["--config", "go19_jumbo", "--ai_vs_ai", "--device", str(dev)])
+    finally:
+        evaluator_lib.make_eval_move_fn, mcts.batched_search = make_move_fn, search
+        if saved_tk is None:
+            del sys.modules["tkinter"]
+        else:
+            sys.modules["tkinter"] = saved_tk
+    gui_s = time.time() - t0
+    launches = (select.launches - k0[0], writer.launches - k0[1])
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    check_plies("[13] go19_jumbo GUI", plies, sims)
+    env = tk.gui.env
+    if len(plies) != GUI_PLIES or env.steps != GUI_PLIES or env.is_game_over():
+        raise SystemExit(f"[13] the GUI played {len(plies)} plies, env at step {env.steps}")
+    replay = GoEnv(board_size=19, komi=cfg.env.komi, num_stack=cfg.env.num_stack, device="cpu")
+    boards = []
+    for color, move in env.history:
+        if not replay.is_legal_move(move):
+            raise SystemExit(f"[13] move {color} {move} illegal on a CPU replay")
+        replay.step(move)
+        boards.append(replay.board.copy())
+    if not (replay.board == env.board).all():
+        raise SystemExit("[13] the CPU replay's board != the GUI's")
+    check_gui_drawing("[13] go19_jumbo GUI", tk.calls, boards, STONE_R)
+
+    # K1 and K2 on the last ply's searched tree (B=1, T=801, A=362).
+    (tree,) = trees
+    b, t = tree.node_N.shape
+    engine = build_engine(cfg.env)
+    args = select_bench.select_args(tree)
+    kw = dict(path_cap=min(sims + 1, engine.max_steps + 2),
+              c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
+    got, ref = select(*args, **kw), tree_kernels.select_leaf_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, o, r in zip(select_bench.OUTPUTS, got, ref):
+        if o.dtype != r.dtype or not torch.equal(o, r):
+            raise SystemExit(f"[13] select kernel != plain on the go19_jumbo tree: {name}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    widx = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).to(torch.int32)
+    arrays = mcts.materialize_arrays(tree)
+    rows = [torch.randint(-100, 100, (b,) + a.shape[2:], generator=gen,
+                          device=dev).to(a.dtype) for a in arrays]
+    expand = ([tree.child_P, tree.node_expanded],
+              [torch.rand((b,) + tree.child_P.shape[2:], generator=gen, device=dev),
+               torch.ones(b, dtype=torch.bool, device=dev)])
+    for arr, rr in ((arrays, rows), expand):
+        for w in (widx, torch.full_like(widx, -1)):
+            dma_probe.check_writer(writer, arr, rr, w)
+    k1 = select_bench.time_select(select, args, kw, 50)
+    k1["plain_ms"] = time_ms(lambda: tree_kernels.select_leaf_plain(*args, **kw), 5)
+    k1.update(select_bench.select_bound(ref[6], b, t, tree.child_P.shape[2]))
+
+    def write():
+        writer(arrays, rows, widx)
+
+    k2 = dict(ms=graph_ms(write, 50), cold_ms=graph_ms(write, 50, 2 * L2_BYTES),
+              plain_ms=graph_ms(lambda: scatter_kernels.write_rows_plain(arrays, rows, widx), 50),
+              bytes=dma_probe.set_bytes(b, rows))
+    k2["bound_ms"] = k2["bytes"] / HBM_BYTES_PER_S * 1e3
+
+    out = {"config": "go19_jumbo", "reduced": None, "plies": len(plies),
+           "ply_s": [s for _, _, s in plies], "gui_s": gui_s, "analysis_s": analysis_s,
+           "peak_gib": peak, "held_before_gib": held / 2**30,
+           "moves": [list(m) for m in env.history],
+           "tree_nodes": int(tree.num_nodes[0]), "depth_max": int(ref[6].max()),
+           "k1": k1, "k2": k2}
+    print(f"[13] go19_jumbo cli.play --ai_vs_ai (19 x 256, bf16, 800 sims, fresh trees "
+          f"T={t} A={tree.child_P.shape[2]}, B=1; tkinter stand-in) on {card}: {len(plies)} "
+          f"plies of {', '.join(f'{s:.2f}' for s in out['ply_s'])} s ({sims - 1} K1 and "
+          f"{2 * (sims - 1)} K2 launches each), {gui_s:.1f} s with the net's build; moves "
+          f"{out['moves']} legal, replayed on the CPU to the same board; board and header "
+          f"drawn after each ply; peak memory {peak:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held before it", flush=True)
+    print(f"[13] K1 and K2 bit-equal to their plain versions on the searched go19_jumbo "
+          f"tree ({out['tree_nodes']} nodes, depth max {out['depth_max']}). K1 graph "
+          f"{k1['ms'] * 1e3:.2f} us warm, {k1['cold_ms'] * 1e3:.2f} us cold, back to back "
+          f"{k1['back_to_back_ms'] * 1e3:.2f} us, plain {k1['plain_ms']:.4f} ms, bound "
+          f"{k1['bound_ms'] * 1e3:.3f} us ({k1['bound_by']}); K2 materialize set "
+          f"{k2['ms'] * 1e3:.2f} us warm, {k2['cold_ms'] * 1e3:.2f} us cold, plain "
+          f"{k2['plain_ms'] * 1e3:.2f} us, bound {k2['bound_ms'] * 1e3:.4f} us, on {card}",
+          flush=True)
+    print("[13] " + json.dumps(out), flush=True)
     return out, launches
 
 
@@ -1486,6 +1761,10 @@ def main() -> None:
     _, dryrun_launches = dryrun_path(card, dev)
     launches["dryrun"] = tuple(sum(x) for x in zip(*dryrun_launches))
 
+    # --- 13. cli.analysis, then the GUI's AI-vs-AI game at go19_jumbo width.
+    select.launches = writer.launches = 0
+    gui, launches["go19_gui"] = gui_path(card, dev)
+
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with
     # the expand set and the single f32 array (vs index_copy_) beside it.
@@ -1510,6 +1789,10 @@ def main() -> None:
         "library_ms": None,
         "b1_ms": matches["k2_ms"][1],
         f"b{MATCH_GAMES}_ms": matches["k2_ms"][MATCH_GAMES],
+        "go19_jumbo_b1_ms": gui["k2"]["ms"],
+        "go19_jumbo_b1_cold_ms": gui["k2"]["cold_ms"],
+        "go19_jumbo_b1_plain_ms": gui["k2"]["plain_ms"],
+        "go19_jumbo_b1_bound_ms": gui["k2"]["bound_ms"],
         "expand_ms": exp["graph_ms"],
         "expand_cold_ms": exp["cold_ms"],
         "expand_plain_ms": set_line("put_rows", "expand")["graph_ms"],
@@ -1547,6 +1830,10 @@ def main() -> None:
         "back_to_back_ms": times["back_to_back_ms"],
         "b1_ms": matches["k1_ms"][1]["ms"],
         f"b{MATCH_GAMES}_ms": matches["k1_ms"][MATCH_GAMES]["ms"],
+        "go19_jumbo_b1_ms": gui["k1"]["ms"],
+        "go19_jumbo_b1_cold_ms": gui["k1"]["cold_ms"],
+        "go19_jumbo_b1_plain_ms": gui["k1"]["plain_ms"],
+        "go19_jumbo_b1_bound_ms": gui["k1"]["bound_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],

@@ -44,6 +44,8 @@ EVAL_PATH = ("eval/__init__.py", "eval/elo.py", "eval/dataset.py", "eval/match.p
 # The data- and model-parallel path's modules.
 PARALLEL_PATH = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
                  "parallel/dryrun.py")
+# The GUI, the analysis and plot CLIs and the oracle search.
+LAST_MODULES = ("cli/gui.py", "cli/analysis.py", "cli/plot.py", "search/reference.py")
 
 
 def test_port_sources_import_nothing_of_jax():
@@ -52,7 +54,7 @@ def test_port_sources_import_nothing_of_jax():
                  if name.split(".")[0] in BANNED]
     assert not offenders, offenders
     assert len(_port_files()) > 10
-    assert {PORT / p for p in EVAL_PATH + PARALLEL_PATH} <= set(_port_files())
+    assert {PORT / p for p in EVAL_PATH + PARALLEL_PATH + LAST_MODULES} <= set(_port_files())
 
 
 def test_kernel_layer_imports_nothing_above_it():
@@ -119,6 +121,8 @@ def test_evaluator_path_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
     from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.cli import analysis as cli_analysis
+    from alpha_zero_tpu_torch.cli import gui as cli_gui
     from alpha_zero_tpu_torch.cli import match as cli_match
     from alpha_zero_tpu_torch.cli import play as cli_play
     from alpha_zero_tpu_torch.envs.host import GoEnv, GomokuEnv
@@ -143,6 +147,12 @@ def test_evaluator_path_entry_points_default_to_cuda(tmp_path):
         lambda: cli_play.load_variables(cfg, ""),
         lambda: cli_match.main(["--black_ckpt", "", "--white_ckpt", ""]),
         lambda: cli_play.main([]),
+        lambda: cli_play.main(["--ai_vs_ai"]),
+        lambda: cli_gui.gui_play(cfg, ""),
+        lambda: cli_analysis.main(["params"]),
+        lambda: cli_analysis.main(["score-demo"]),
+        lambda: cli_analysis.main(["filter-sgf", "--games_dir", str(tmp_path),
+                                   "--out_dir", str(tmp_path / "out")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
