@@ -107,22 +107,74 @@ def _linear(fin: int, fout: int, mdl: int = 1) -> nn.Linear:
     return nn.Linear(fin, fout)
 
 
-def batch_moments(xf: torch.Tensor):
+def batch_moments(xf: torch.Tensor, reduced: Optional[torch.Tensor] = None):
     """Flax's train-mode moments of ``xf`` ``[B, C, H, W]`` per channel: the
     mean and the biased variance E[x^2] - E[x]^2, clipped at 0, over the
     whole batch. With more than one model group, the batch is the global
     one: Σx, Σx² and the count are summed over the data group in one
     ``all_reduce`` that carries autograd (``multihost.all_reduce_sum``), as
     Flax computes them on the dp-sharded array. The ranks of a model group
-    hold the same rows, so each sums them once."""
+    hold the same rows, so each sums them once.
+
+    Returns ``(mean, var, sums)``: ``sums`` the data group's ``[Σx, Σx²,
+    count]``, None with one model group. Given the ``sums`` of an earlier
+    call on the same ``xf`` as ``reduced``, they stand for the collective's
+    result, which is not run again; the gradient still crosses the group."""
     if multihost.mesh().dp == 1:
         mean = xf.mean(dim=(0, 2, 3))
-        return mean, torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        return mean, torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0), None
     c = xf.shape[1]
     sums = multihost.all_reduce_sum(torch.cat([
-        xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), xf.new_full((1,), xf.numel() // c)]))
+        xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), xf.new_full((1,), xf.numel() // c)]),
+        reduced)
     mean = sums[:c] / sums[-1]
-    return mean, torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
+    return mean, torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0), sums
+
+
+def _normalize_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                     reduced: Optional[torch.Tensor] = None):
+    """Flax's train-mode BatchNorm of ``x`` in float32 (float64 for a
+    float64 input), cast back to ``x``'s dtype: ``(y, mean, var, sums)``."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean, var, sums = batch_moments(xf, reduced)
+    mul = torch.rsqrt(var + eps) * weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    return y.to(x.dtype), mean, var, sums
+
+
+class _TrainBatchNorm(torch.autograd.Function):
+    """``_normalize_train`` that keeps only its input (in the input's dtype),
+    the weight, the bias and the data group's sums for backward, and runs
+    again from them there: the float32 copies of the activation that
+    autograd would keep (the cast input for ``x * x`` and ``x - mean`` for
+    the scale) live only inside one layer's backward. The same ops on the
+    same values under the same autocast state give the gradients autograd
+    gives when it keeps them, bit for bit. The running statistics are
+    updated once, in forward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn):
+        y, mean, var, sums = _normalize_train(x, weight, bias, bn.eps)
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(m * mean)
+        bn.running_var.mul_(1.0 - m).add_(m * var)
+        ctx.eps = bn.eps
+        ctx.autocast = (x.device.type, torch.is_autocast_enabled(x.device.type),
+                        torch.get_autocast_dtype(x.device.type))
+        ctx.save_for_backward(x, weight, bias, sums)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, bias, sums = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((x, weight, bias), ctx.needs_input_grad)]
+        device_type, enabled, dtype = ctx.autocast
+        with torch.enable_grad(), torch.autocast(device_type, dtype=dtype, enabled=enabled):
+            y = _normalize_train(*inputs, ctx.eps, sums)[0]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -132,7 +184,9 @@ class BatchNorm(nn.BatchNorm2d):
     when ranks train together (``batch_moments``), the input normalized
     with them, and the running statistics updated with the same biased
     variance (torch's own forward updates them with the unbiased one;
-    ``nn.SyncBatchNorm`` too, so it is no substitute).
+    ``nn.SyncBatchNorm`` too, so it is no substitute). Backward recomputes
+    the layer from its input (``_TrainBatchNorm``), so a bf16 activation is
+    kept in bf16 alone.
 
     Eval mode is torch's ``F.batch_norm``, which takes a bf16 input with
     float32 weights and statistics, normalizes in float32 and returns bf16
@@ -143,15 +197,7 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean, var = batch_moments(xf)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(m * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return _TrainBatchNorm.apply(x, self.weight, self.bias, self)
 
 
 def _bn(c: int) -> BatchNorm:

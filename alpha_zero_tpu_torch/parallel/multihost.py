@@ -195,8 +195,10 @@ def barrier() -> None:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
+    def forward(ctx, t, group, reduced):
         ctx.group = group
+        if reduced is not None:
+            return reduced.clone()
         t = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(t, group=group)
         return t
@@ -205,14 +207,16 @@ class _AllReduceSum(torch.autograd.Function):
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return grad, None, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, reduced: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The sum of ``t`` over the data group, differentiable: its backward is
     the sum of the ranks' gradients, since every rank's loss reads the sum.
-    A collective, in the backward pass too."""
-    return _AllReduceSum.apply(t, _data_group())
+    A collective, in the backward pass too. ``reduced``, the result of an
+    earlier call on the same ``t``, is returned in place of running the
+    forward collective again (a recompute); the backward is the same."""
+    return _AllReduceSum.apply(t, _data_group(), reduced)
 
 
 class _CopyToModel(torch.autograd.Function):

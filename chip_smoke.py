@@ -91,6 +91,22 @@ card against its CPU path on small inputs, then drives the port's paths:
   after each ply; seconds a ply and peak memory (above what earlier phases
   hold); K1 and K2 bit-equal to their plain versions on the last ply's
   searched tree and timed there.
+- [14] go19_jumbo at its own scale: ``cli.train.main(["--config",
+  "go19_jumbo", "--no-eval", ...])`` in-process (B=2048 self-play games,
+  19 x 256 bf16 net of seed 0, 800 simulations with max_new_sims=480 on
+  trees of T=801, A=362, train batch 2048 at lr 0.2), cut only in length
+  (``env.max_steps=JUMBO_GAME_STEPS``, one generation of 2048 games and
+  ``JUMBO_TRAIN_STEPS`` steps; the Trainer harvests two steps behind its
+  dispatch, so it plays four moves): 480 K1 and 960 K2 launches a move,
+  every move legal and every game scored alike on a lockstep replay by the
+  engine on the CPU, ``search_pi`` rows summing to 1, the replay, finite
+  losses, the checkpoint restored bit-equal, the self-play net equal to the
+  master weights; seconds a move, ms a train step (CUDA events, warm, the
+  self-play trees resident), peak memory of self-play and of the train
+  steps; the recompute BatchNorm bit-equal to the formulation it replaced
+  (``kept_bn_forward``) at batch ``BN_CHECK_BATCH``, cuDNN deterministic;
+  K1 and K2 bit-equal to their plain versions on all 2048 lanes of move 2's
+  searched tree and timed there.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -103,14 +119,15 @@ the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
 kernels' launch counts are set to 0 before each of [5], [7], [8], [9],
-[13] and [10], [11] and [12] (in each of their ranks) and read after it;
+[13], [14] and [10], [11] and [12] (in each of their ranks) and read after it;
 ``launches`` sums them,
 ``launches_by_path`` splits them (``go9_training`` is [8]'s self-play and
 profiled move, ``go9_eval`` its evaluation plies and [9]'s eval game,
 ``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks,
 ``go9_mdl2`` [11]'s and ``dryrun`` [12]'s four, each counted in its own
-process and carried back, ``go19_gui`` [13]'s GUI game). ``go19_jumbo_b1_*``
-are K1's and K2's times on [13]'s searched tree.
+process and carried back, ``go19_gui`` [13]'s GUI game, ``go19_b2048``
+[14]'s self-play). ``go19_jumbo_b1_*`` are K1's and K2's times on [13]'s
+searched tree, ``go19_jumbo_b2048_*`` on [14]'s.
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -138,11 +155,22 @@ MATCH_GAMES = 64
 # [8]'s, [9]'s and [10]'s games end at this many moves. 24 until the model
 # axis added [11] and [12]: their evaluations and matches, launch-bound at
 # 2-4 s a ply, took 600 s of a 1287 s run on a slower card, past the 1200 s
-# the script has. [10] kept 24 until [13] added go19_jumbo's GUI game.
-GAME_STEPS = 12
+# the script has. [10] kept 24 until [13] added go19_jumbo's GUI game; 12
+# until [14] added go19_jumbo's self-play (237 s on an NVIDIA H100 80GB
+# HBM3 at 700.00 W), which would have brought the run there to ~870 s.
+GAME_STEPS = 8
 # [13]'s AI-vs-AI game stops after one move of each side: a go19_jumbo ply
 # is an 800-simulation search at B=1, launch-bound like go9's 2-4 s ply.
 GUI_PLIES = 2
+# [14] runs go19_jumbo at its own widths (B=2048 games, 800 simulations with
+# max_new_sims=480, train batch 2048) cut in length only: games of two
+# moves (the second searches a rerooted tree) and one generation of two
+# train steps, timed after the run on two more.
+JUMBO_GAME_STEPS = 2
+JUMBO_TRAIN_STEPS = 2
+# [14] holds the recompute BatchNorm to the formulation it replaced on a
+# batch where the latter's float32 copies fit beside everything else.
+BN_CHECK_BATCH = 256
 # [10]'s first DP step (bf16 compute, two ranks of 512 rows) against one
 # step of the same net on the 1024 rows in one process: cuDNN picks its
 # convolution algorithms per batch size, so bf16 activations may round
@@ -309,6 +337,23 @@ def check_plies(label, plies, sims):
                          f"({sims - 1}, {2 * (sims - 1)})")
 
 
+def check_play_net(label, trainer) -> None:
+    """The Trainer's bf16 self-play net equal to its float32 master weights
+    cast to bf16, BatchNorm's tensors float32 and equal."""
+    import torch
+
+    master = trainer.train_state.net.state_dict()
+    bn = {n for n, m in trainer.play_net.named_modules()
+          if isinstance(m, torch.nn.BatchNorm2d)}
+    for name, value in trainer.play_net.state_dict().items():
+        want = (torch.float32 if name.rsplit(".", 1)[0] in bn else torch.bfloat16)
+        if value.is_floating_point() and value.dtype != want:
+            raise SystemExit(f"{label} self-play net's {name} is {value.dtype}, not {want}")
+        if not torch.equal(value, master[name].to(value.dtype)):
+            raise SystemExit(f"{label} self-play net != master weights cast to "
+                             f"{value.dtype} after step {trainer.training_steps}: {name}")
+
+
 def train_path(card, dev) -> dict:
     """[8]: ``cli.train.main`` in-process at go9 full width (10 x 128, bf16
     compute, float32 master weights, 1024 self-play games, train batch
@@ -385,16 +430,7 @@ def train_path(card, dev) -> dict:
 
     def generation(self):
         timed(train_generation, "generation_s")(self)
-        master = self.train_state.net.state_dict()
-        bn = {n for n, m in self.play_net.named_modules()
-              if isinstance(m, torch.nn.BatchNorm2d)}
-        for name, value in self.play_net.state_dict().items():
-            want = (torch.float32 if name.rsplit(".", 1)[0] in bn else torch.bfloat16)
-            if value.is_floating_point() and value.dtype != want:
-                raise SystemExit(f"[8] self-play net's {name} is {value.dtype}, not {want}")
-            if not torch.equal(value, master[name].to(value.dtype)):
-                raise SystemExit(f"[8] self-play net != master weights cast to "
-                                 f"{value.dtype} after step {self.training_steps}: {name}")
+        check_play_net("[8]", self)
         seen["snapshots"][self.training_steps] = copy.deepcopy(self.train_state)
         seen["trainer"] = self
 
@@ -1125,6 +1161,57 @@ def check_gui_drawing(label, calls, boards, stone_r):
                              f"header {headers[k]!r}")
 
 
+def searched_tree_kernels(label, tree, cfg, engine, dev):
+    """K1 and K2 on a searched tree of ``cfg``'s search: K1 (the tree's
+    next select) bit-equal to its plain version, K2 bit-equal to
+    ``write_rows_plain`` on the materialize and expand sets with random rows
+    for each lane's next slot and with every lane idle; then both timed
+    (warm, L2-flushed and back to back, the plain version beside each, the
+    bound from these inputs). Returns (k1, k2, the descents' depths)."""
+    import torch
+
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.search import mcts
+    from alpha_zero_tpu_torch.tools import dma_probe, select_bench
+    from alpha_zero_tpu_torch.utils.device import HBM_BYTES_PER_S, L2_BYTES, graph_ms, time_ms
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    b, t = tree.node_N.shape
+    args = select_bench.select_args(tree)
+    kw = dict(path_cap=min(cfg.search.num_simulations + 1, engine.max_steps + 2),
+              c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
+    got, ref = select(*args, **kw), tree_kernels.select_leaf_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, o, r in zip(select_bench.OUTPUTS, got, ref):
+        if o.dtype != r.dtype or not torch.equal(o, r):
+            raise SystemExit(f"{label} select kernel != plain on the searched tree: {name}")
+    del got
+    gen = torch.Generator(device=dev).manual_seed(13)
+    widx = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).to(torch.int32)
+    arrays = mcts.materialize_arrays(tree)
+    rows = [torch.randint(-100, 100, (b,) + a.shape[2:], generator=gen,
+                          device=dev).to(a.dtype) for a in arrays]
+    expand = ([tree.child_P, tree.node_expanded],
+              [torch.rand((b,) + tree.child_P.shape[2:], generator=gen, device=dev),
+               torch.ones(b, dtype=torch.bool, device=dev)])
+    for arr, rr in ((arrays, rows), expand):
+        for w in (widx, torch.full_like(widx, -1)):
+            dma_probe.check_writer(writer, arr, rr, w)
+    k1 = select_bench.time_select(select, args, kw, 50)
+    k1["plain_ms"] = time_ms(lambda: tree_kernels.select_leaf_plain(*args, **kw), 5)
+    k1.update(select_bench.select_bound(ref[6], b, t, tree.child_P.shape[2]))
+
+    def write():
+        writer(arrays, rows, widx)
+
+    k2 = dict(ms=graph_ms(write, 50), cold_ms=graph_ms(write, 50, 2 * L2_BYTES),
+              back_to_back_ms=time_ms(write, 50),
+              plain_ms=graph_ms(lambda: scatter_kernels.write_rows_plain(arrays, rows, widx), 50),
+              bytes=dma_probe.set_bytes(b, rows))
+    k2.update(bound_ms=k2["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return k1, k2, ref[6]
+
+
 def gui_path(card, dev) -> dict:
     """[13]: ``cli.analysis`` through its ``main`` (``params`` on the card
     against the CPU's counts, ``score-demo`` on the card bit-equal to the
@@ -1150,9 +1237,7 @@ def gui_path(card, dev) -> dict:
     from alpha_zero_tpu_torch.eval import evaluator as evaluator_lib
     from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
     from alpha_zero_tpu_torch.search import mcts
-    from alpha_zero_tpu_torch.tools import dma_probe, select_bench
     from alpha_zero_tpu_torch.training.pipeline import build_engine
-    from alpha_zero_tpu_torch.utils.device import HBM_BYTES_PER_S, L2_BYTES, graph_ms, time_ms
 
     def analysis_out(*argv):
         out = io.StringIO()
@@ -1230,44 +1315,14 @@ def gui_path(card, dev) -> dict:
 
     # K1 and K2 on the last ply's searched tree (B=1, T=801, A=362).
     (tree,) = trees
-    b, t = tree.node_N.shape
-    engine = build_engine(cfg.env)
-    args = select_bench.select_args(tree)
-    kw = dict(path_cap=min(sims + 1, engine.max_steps + 2),
-              c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
-    got, ref = select(*args, **kw), tree_kernels.select_leaf_plain(*args, **kw)
-    torch.cuda.synchronize()
-    for name, o, r in zip(select_bench.OUTPUTS, got, ref):
-        if o.dtype != r.dtype or not torch.equal(o, r):
-            raise SystemExit(f"[13] select kernel != plain on the go19_jumbo tree: {name}")
-    gen = torch.Generator(device=dev).manual_seed(13)
-    widx = torch.where(tree.num_nodes < t, tree.num_nodes, -1.0).to(torch.int32)
-    arrays = mcts.materialize_arrays(tree)
-    rows = [torch.randint(-100, 100, (b,) + a.shape[2:], generator=gen,
-                          device=dev).to(a.dtype) for a in arrays]
-    expand = ([tree.child_P, tree.node_expanded],
-              [torch.rand((b,) + tree.child_P.shape[2:], generator=gen, device=dev),
-               torch.ones(b, dtype=torch.bool, device=dev)])
-    for arr, rr in ((arrays, rows), expand):
-        for w in (widx, torch.full_like(widx, -1)):
-            dma_probe.check_writer(writer, arr, rr, w)
-    k1 = select_bench.time_select(select, args, kw, 50)
-    k1["plain_ms"] = time_ms(lambda: tree_kernels.select_leaf_plain(*args, **kw), 5)
-    k1.update(select_bench.select_bound(ref[6], b, t, tree.child_P.shape[2]))
-
-    def write():
-        writer(arrays, rows, widx)
-
-    k2 = dict(ms=graph_ms(write, 50), cold_ms=graph_ms(write, 50, 2 * L2_BYTES),
-              plain_ms=graph_ms(lambda: scatter_kernels.write_rows_plain(arrays, rows, widx), 50),
-              bytes=dma_probe.set_bytes(b, rows))
-    k2["bound_ms"] = k2["bytes"] / HBM_BYTES_PER_S * 1e3
+    k1, k2, depth = searched_tree_kernels("[13]", tree, cfg, build_engine(cfg.env), dev)
+    t = tree.node_N.shape[1]
 
     out = {"config": "go19_jumbo", "reduced": None, "plies": len(plies),
            "ply_s": [s for _, _, s in plies], "gui_s": gui_s, "analysis_s": analysis_s,
            "peak_gib": peak, "held_before_gib": held / 2**30,
            "moves": [list(m) for m in env.history],
-           "tree_nodes": int(tree.num_nodes[0]), "depth_max": int(ref[6].max()),
+           "tree_nodes": int(tree.num_nodes[0]), "depth_max": int(depth.max()),
            "k1": k1, "k2": k2}
     print(f"[13] go19_jumbo cli.play --ai_vs_ai (19 x 256, bf16, 800 sims, fresh trees "
           f"T={t} A={tree.child_P.shape[2]}, B=1; tkinter stand-in) on {card}: {len(plies)} "
@@ -1443,6 +1498,359 @@ def match_path(card, dev, ckpt_dir) -> dict:
     print("[9] " + json.dumps(out), flush=True)
     shutil.rmtree(out_dir)
     return out, match_launches, eval_launches
+
+
+def kept_bn_forward(self, x):
+    """The train-mode BatchNorm forward that ``models/resnet.py``'s
+    recompute (``_TrainBatchNorm``) replaced, on one model group: the same
+    float32 ops with autograd keeping their intermediates, two float32
+    copies of every activation. [14] holds the recompute to it."""
+    import torch
+
+    if not self.training:
+        return torch.nn.BatchNorm2d.forward(self, x)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(m * mean)
+        self.running_var.mul_(1.0 - m).add_(m * var)
+    mul = torch.rsqrt(var + self.eps) * self.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+def bn_recompute_check(cfg, dev, states, pis, values) -> dict:
+    """One forward and backward of ``cfg``'s net in train mode (bf16
+    autocast, float32 master weights of seed 0, ``learner.loss_fn``) on the
+    given rows, with the recompute BatchNorm and with ``kept_bn_forward``,
+    cuDNN deterministic: the losses, every gradient and every running
+    statistic must be bit-equal. Returns each one's peak memory above what
+    was held before it, in GiB."""
+    import copy
+
+    import torch
+
+    from alpha_zero_tpu_torch.models.resnet import BatchNorm, build_network
+    from alpha_zero_tpu_torch.training import learner
+
+    net = build_network(cfg.env, cfg.network, device=dev, seed=0, dtype="float32").train()
+    nets = {"recompute": net, "kept": copy.deepcopy(net)}
+    results, peaks = {}, {}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    recompute_forward = BatchNorm.forward
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for name, n in nets.items():
+            BatchNorm.forward = kept_bn_forward if name == "kept" else recompute_forward
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            losses = learner.loss_fn(n, states, pis, values, torch.bfloat16)
+            sum(losses).backward()
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            results[name] = [x.detach() for x in losses] + [p.grad for p in n.parameters()] + [
+                b for b in n.buffers()]
+    finally:
+        BatchNorm.forward = recompute_forward
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    for i, (a, b) in enumerate(zip(results["recompute"], results["kept"])):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise SystemExit(f"[14] recompute BatchNorm != the kept formulation: tensor {i} "
+                             f"of losses, gradients and buffers")
+    return peaks
+
+
+def replay_on_cpu(label, cfg, outputs) -> None:
+    """The self-play moves ``outputs`` (each move's ``move``, ``done`` and
+    ``final_score`` for every lane, on the host) replayed in lockstep by the
+    engine on the CPU from empty boards, finished games reset as self-play
+    resets them: every move legal, every game ending on the same move with
+    the same score."""
+    import torch
+
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+
+    engine = build_engine(cfg.env)
+    batch = outputs[0]["move"].shape[0]
+    games = engine.init_batch(batch, device="cpu")
+    for i, out in enumerate(outputs):
+        move = out["move"].long()
+        if not (games.legal.gather(1, move[:, None]) == 1.0).all():
+            raise SystemExit(f"{label} move {i + 1} illegal on a CPU replay")
+        games = engine.step_batch(games, move.to(torch.int32))
+        if not torch.equal(games.done, out["done"]):
+            raise SystemExit(f"{label} move {i + 1}: games end on other moves on the CPU")
+        if not torch.equal(games.final_score[games.done], out["final_score"][games.done]):
+            raise SystemExit(f"{label} move {i + 1}: final scores differ on the CPU")
+        done = games.done
+        games = engine.init_batch(batch, device="cpu").map2(games, lambda f, g: torch.where(
+            done.reshape((batch,) + (1,) * (g.dim() - 1)), f, g))
+
+
+def jumbo_path(card, dev) -> dict:
+    """[14]: ``cli.train.main(["--config", "go19_jumbo", "--no-eval", ...])``
+    in-process at go19_jumbo's own widths (B=2048 self-play games, 19 x 256
+    bf16 net, 800 simulations with ``max_new_sims=480`` on trees of T=801,
+    A=362, train batch 2048), cut only in length: ``env.max_steps=2``, one
+    generation of 2048 games and 2 train steps. Checks every move's K1 and
+    K2 launches, every move legal on a CPU replay, ``search_pi`` rows
+    summing to 1, the replay, finite losses, the checkpoint restored
+    bit-equal, the self-play net equal to the master weights; times the
+    moves and (after the run, the trees still resident) the train step;
+    holds the recompute BatchNorm to the formulation it replaced at batch
+    ``BN_CHECK_BATCH``; then K1 and K2 on the searched tree of move 2,
+    bit-equal to their plain versions on all lanes and timed. Returns the
+    numbers and the run's (K1, K2) launches."""
+    import copy
+    import csv
+    import math
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from alpha_zero_tpu_torch.cli import train as cli_train
+    from alpha_zero_tpu_torch.cli.common import resolve_config
+    from alpha_zero_tpu_torch.models.resnet import build_network
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.search import mcts
+    from alpha_zero_tpu_torch.training import checkpoint as ckpt_lib
+    from alpha_zero_tpu_torch.training import learner
+    from alpha_zero_tpu_torch.training.pipeline import build_engine
+    from alpha_zero_tpu_torch.utils.device import BF16_OPS_PER_S
+
+    run_dir = os.path.join(HERE, "build", "chip_smoke_jumbo")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ckpt_dir, logs_dir = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "logs")
+    widths = resolve_config("go19_jumbo", [])
+    batch, train_batch = widths.parallel.selfplay_batch_size, widths.train.batch_size
+    sets = [f"env.max_steps={JUMBO_GAME_STEPS}", f"train.min_games={batch}",
+            f"train.games_per_ckpt={batch}", f"train.max_training_steps={JUMBO_TRAIN_STEPS}",
+            f"train.ckpt_interval={JUMBO_TRAIN_STEPS}", f"run.ckpt_dir={ckpt_dir}",
+            f"run.logs_dir={logs_dir}"]
+    argv = ["--config", "go19_jumbo", "--device", str(dev), "--no-eval"] + [
+        x for v in sets for x in ("--set", v)]
+    cfg = resolve_config("go19_jumbo", sets)
+    loop_len = cfg.search.max_new_sims  # batched_search's loop, fresh or reused tree
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    seen = {"moves": [], "move_peaks": [], "outputs": [], "steps": [], "trainer": None,
+            "tree": None}
+
+    def prepare(trainer):
+        """Instruments the Trainer ``cli.train`` built, before it runs."""
+        seen["trainer"] = trainer
+        step = trainer.selfplay_step
+        train_once, generation = trainer._train_once, trainer.train_generation
+
+        def counted_step(*args, **kwargs):
+            s0, w0 = select.launches, writer.launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sp, out = step(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen["moves"].append((select.launches - s0, writer.launches - w0,
+                                  time.perf_counter() - t0))
+            seen["move_peaks"].append(torch.cuda.max_memory_allocated() / 2**30)
+            seen["outputs"].append({"move": out.move.cpu(), "done": out.done.cpu(),
+                                    "final_score": out.final_score.cpu(),
+                                    "pi_sum": out.search_pi.sum(-1).cpu()})
+            return sp, out
+
+        def timed_train_once():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_once()
+            torch.cuda.synchronize()
+            seen["steps"].append((float(metrics.policy_loss), float(metrics.value_loss),
+                                  time.perf_counter() - t0))
+            return metrics
+
+        def measured_generation():
+            torch.cuda.reset_peak_memory_stats()
+            seen["held_before_train"] = torch.cuda.memory_allocated() / 2**30
+            generation()
+            seen["train_peak"] = torch.cuda.max_memory_allocated() / 2**30
+
+        trainer.selfplay_step = counted_step
+        trainer._train_once, trainer.train_generation = timed_train_once, measured_generation
+
+    search = mcts.batched_search
+
+    def keep_tree(*args, **kwargs):
+        result = search(*args, **kwargs)
+        if len(seen["moves"]) == 1:  # the search of move 2, on rerooted trees
+            seen["tree"] = result[1]
+        return result
+
+    k0 = (select.launches, writer.launches)
+    mcts.batched_search = keep_tree
+    t0 = time.time()
+    try:
+        cli_train.main(argv, prepare=prepare)
+    finally:
+        mcts.batched_search = search
+    wall = time.time() - t0
+    launches = (select.launches - k0[0], writer.launches - k0[1])
+    trainer, tree = seen["trainer"], seen["tree"]
+    if trainer is None or trainer.training_steps != JUMBO_TRAIN_STEPS or tree is None:
+        raise SystemExit("[14] the run did not reach its step budget")
+    per_move = sorted({(k1, k2) for k1, k2, _ in seen["moves"]})
+    if per_move != [(loop_len, 2 * loop_len)]:
+        raise SystemExit(f"[14] launches per self-play move {per_move}, expected "
+                         f"({loop_len}, {2 * loop_len})")
+    if launches != (loop_len * len(seen["moves"]), 2 * loop_len * len(seen["moves"])):
+        raise SystemExit(f"[14] {launches} K1/K2 launches in the run, not the moves' sum")
+    b, t, a = tree.child_P.shape
+    if (b, t, a) != (batch, cfg.search.num_simulations + 1, cfg.env.num_actions):
+        raise SystemExit(f"[14] searched trees of shape {(b, t, a)}")
+
+    # Every move legal and every game scored alike on a CPU replay; the
+    # search policy, the replay and the losses.
+    t1 = time.time()
+    replay_on_cpu("[14]", cfg, seen["outputs"])
+    replay_s = time.time() - t1
+    for i, out in enumerate(seen["outputs"]):
+        if not torch.allclose(out["pi_sum"], torch.ones(batch), atol=1e-5):
+            raise SystemExit(f"[14] move {i + 1}: search_pi rows do not sum to 1")
+    games = sum(int(out["done"].sum()) for out in seen["outputs"])
+    replay = trainer.replay
+    if not (replay.num_games_added == games >= batch
+            and replay.size == replay.num_samples_added == JUMBO_GAME_STEPS * games):
+        raise SystemExit(f"[14] replay holds {replay.num_games_added} games and "
+                         f"{replay.size} samples; {games} games finished")
+    n = replay.size
+    if not np.allclose(replay.pi_probs[:n].sum(-1), 1.0, atol=1e-5):
+        raise SystemExit("[14] replay pi rows do not sum to 1")
+    losses = [(pl, vl) for pl, vl, _ in seen["steps"]]
+    if len(losses) != JUMBO_TRAIN_STEPS or not all(math.isfinite(x) for p in losses for x in p):
+        raise SystemExit(f"[14] train steps' losses {losses}")
+    with open(os.path.join(logs_dir, "training.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if int(rows[-1]["training_steps"]) != JUMBO_TRAIN_STEPS:
+        raise SystemExit(f"[14] training.csv rows {rows}")
+
+    # The checkpoint, restored into a fresh state, and the self-play net.
+    fresh = learner.create_train_state(
+        build_network(cfg.env, cfg.network, device=dev, dtype="float32"), cfg.train)
+    path = os.path.join(ckpt_dir, f"training_steps_{JUMBO_TRAIN_STEPS}")
+    t1 = time.time()
+    restored = ckpt_lib.restore_checkpoint(path, fresh)
+    restore_s = time.time() - t1
+    if not ckpt_lib.states_equal(restored, trainer.train_state):
+        raise SystemExit(f"[14] {path} restores a different state")
+    del fresh, restored
+    check_play_net("[14]", trainer)
+
+    # ms a train step at batch 2048 (CUDA events, warm) with the self-play
+    # trees still resident; the warm-up step counts its operations.
+    step = learner.make_train_step(cfg.network.inference_dtype, cfg.train.argument_data)
+    sample = replay.sample(train_batch)
+    inputs = tuple(torch.from_numpy(x).to(dev) for x in (sample.state, sample.pi_prob,
+                                                        sample.value))
+    timing_state = copy.deepcopy(trainer.train_state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    with FlopCounterMode(display=False) as flops:
+        step(timing_state, *inputs, 0)
+    step_ms = []
+    for tid in (3, 5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(timing_state, *inputs, tid)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    timed_peak = torch.cuda.max_memory_allocated() / 2**30
+    step_flops = flops.get_total_flops()
+    bound_ms = step_flops / BF16_OPS_PER_S * 1e3
+    del timing_state
+
+    # The recompute BatchNorm against the formulation it replaced, at
+    # go19_jumbo width on the first BN_CHECK_BATCH of those rows.
+    rows_bn = tuple(x[:BN_CHECK_BATCH] for x in inputs)
+    del inputs
+    t1 = time.time()
+    bn_peaks = bn_recompute_check(cfg, dev, *rows_bn)
+    bn_s = time.time() - t1
+
+    # K1 and K2 on the searched tree of move 2 (B=2048, T=801, A=362).
+    seen["tree"] = None
+    k1, k2, depth = searched_tree_kernels("[14]", tree, cfg, build_engine(cfg.env), dev)
+    del tree
+    shutil.rmtree(ckpt_dir)  # ~0.2 GB; the CSVs stay
+
+    move_s = [s for _, _, s in seen["moves"]]
+    out = {"config": "go19_jumbo",
+           "reduced": {"env.max_steps": JUMBO_GAME_STEPS, "games": batch,
+                       "training_steps": JUMBO_TRAIN_STEPS},
+           "selfplay_batch": batch, "train_batch": train_batch, "tree": [b, t, a],
+           "selfplay_moves": len(move_s), "move_s": move_s,
+           "env_steps_per_s": batch * len(move_s) / sum(move_s),
+           "launches_a_move": [loop_len, 2 * loop_len], "games": games, "samples": n,
+           "losses": losses, "run_step_s": [s for _, _, s in seen["steps"]],
+           "train_step_ms": step_ms, "train_samples_per_s": train_batch * 1e3 / min(step_ms),
+           "train_step_flops": step_flops, "train_step_bound_ms": bound_ms,
+           "move_peak_gib": seen["move_peaks"],
+           "held_before_train_gib": seen["held_before_train"],
+           "train_peak_gib": seen["train_peak"], "timed_train_held_gib": held,
+           "timed_train_peak_gib": timed_peak, "card_gib": torch.cuda.get_device_properties(
+               dev).total_memory / 2**30,
+           "bn_check_batch": BN_CHECK_BATCH, "bn_peak_gib": bn_peaks, "bn_check_s": bn_s,
+           "replay_s": replay_s, "restore_s": restore_s, "wall_s": wall,
+           "depth_mean": float(depth.double().mean()), "depth_max": int(depth.max()),
+           "k1": k1, "k2": k2}
+    if max(seen["move_peaks"] + [seen["train_peak"], timed_peak]) >= out["card_gib"]:
+        raise SystemExit(f"[14] peak memory past the card's {out['card_gib']:.1f} GiB")
+    print(f"[14] go19_jumbo via cli.train --no-eval (19 x 256 bf16, 800 sims max_new_sims="
+          f"{loop_len}, B={batch}, T={t}, A={a}; train batch {train_batch}; "
+          f"env.max_steps={JUMBO_GAME_STEPS} and {JUMBO_TRAIN_STEPS} steps the only cuts) on "
+          f"{card}: {len(move_s)} self-play moves of "
+          + ", ".join(f"{x:.2f}" for x in move_s)
+          + f" s ({loop_len} K1 and {2 * loop_len} K2 launches each; "
+          f"{out['env_steps_per_s']:.1f} env-steps/s), {games} games legal on a CPU replay "
+          f"({replay_s:.1f} s), {n} samples; train steps in the run "
+          + ", ".join(f"{x:.2f}" for x in out["run_step_s"]) + f" s, losses {losses}; "
+          f"{wall:.1f} s in cli.train", flush=True)
+    print(f"[14] train step at batch {train_batch}, warm, trees resident: "
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f" ms ({out['train_samples_per_s']:.0f} samples/s; bound {bound_ms:.2f} ms: "
+          f"{step_flops / 1e12:.2f} TFLOP at the bf16 peak). Peak memory a self-play move "
+          + ", ".join(f"{x:.2f}" for x in seen["move_peaks"])
+          + f" GiB (from move 3 on, with move 2's tree kept here), the run's train steps "
+          f"{seen['train_peak']:.2f} GiB ({seen['held_before_train']:.2f} held before, that "
+          f"tree among it), the timed steps {timed_peak:.2f} GiB ({held:.2f} held), of "
+          f"{out['card_gib']:.1f}; checkpoint "
+          f"restored bit-equal ({restore_s:.1f} s); self-play net == master weights", flush=True)
+    print(f"[14] recompute BatchNorm bit-equal to the kept formulation at batch "
+          f"{BN_CHECK_BATCH} (losses, every gradient and running statistic; cuDNN "
+          f"deterministic): peak above held {bn_peaks['recompute']:.2f} GiB against "
+          f"{bn_peaks['kept']:.2f} GiB ({bn_s:.1f} s)", flush=True)
+    print(f"[14] K1 and K2 bit-equal to their plain versions on all {b} lanes of move 2's "
+          f"searched tree (depth mean {out['depth_mean']:.2f}, max {out['depth_max']}). K1 "
+          f"graph {k1['ms'] * 1e3:.2f} us warm, {k1['cold_ms'] * 1e3:.2f} us cold, back to "
+          f"back {k1['back_to_back_ms'] * 1e3:.2f} us, plain {k1['plain_ms']:.4f} ms, bound "
+          f"{k1['bound_ms'] * 1e3:.3f} us ({k1['bound_by']}); K2 materialize set "
+          f"{k2['ms'] * 1e3:.2f} us warm, {k2['cold_ms'] * 1e3:.2f} us cold, back to back "
+          f"{k2['back_to_back_ms'] * 1e3:.2f} us, plain (put_rows x13) "
+          f"{k2['plain_ms'] * 1e3:.2f} us, bound {k2['bound_ms'] * 1e3:.3f} us, on {card}",
+          flush=True)
+    print("[14] " + json.dumps(out), flush=True)
+    seen.clear()
+    return out, launches
+
+
+def jumbo_entry(jumbo, kernel, which) -> dict:
+    """A kernel's ``go19_jumbo_b2048_*`` keys of the JSON line, from [14]."""
+    times = jumbo[kernel]
+    keys = ("ms", "cold_ms", "back_to_back_ms", "plain_ms", "bound_ms", "bound_by")
+    return {"go19_jumbo_b2048_launches_a_move": jumbo["launches_a_move"][which],
+            **{f"go19_jumbo_b2048_{k}": times[k] for k in keys}}
 
 
 def main() -> None:
@@ -1765,6 +2173,10 @@ def main() -> None:
     select.launches = writer.launches = 0
     gui, launches["go19_gui"] = gui_path(card, dev)
 
+    # --- 14. go19_jumbo self-play at B=2048 and training at batch 2048.
+    select.launches = writer.launches = 0
+    jumbo, launches["go19_b2048"] = jumbo_path(card, dev)
+
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with
     # the expand set and the single f32 array (vs index_copy_) beside it.
@@ -1793,6 +2205,7 @@ def main() -> None:
         "go19_jumbo_b1_cold_ms": gui["k2"]["cold_ms"],
         "go19_jumbo_b1_plain_ms": gui["k2"]["plain_ms"],
         "go19_jumbo_b1_bound_ms": gui["k2"]["bound_ms"],
+        **jumbo_entry(jumbo, "k2", 1),
         "expand_ms": exp["graph_ms"],
         "expand_cold_ms": exp["cold_ms"],
         "expand_plain_ms": set_line("put_rows", "expand")["graph_ms"],
@@ -1834,6 +2247,7 @@ def main() -> None:
         "go19_jumbo_b1_cold_ms": gui["k1"]["cold_ms"],
         "go19_jumbo_b1_plain_ms": gui["k1"]["plain_ms"],
         "go19_jumbo_b1_bound_ms": gui["k1"]["bound_ms"],
+        **jumbo_entry(jumbo, "k1", 0),
         "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],

@@ -12,7 +12,8 @@
   step runs at the decayed rate. In float32 on both sides, losses, every
   parameter, the BN running statistics and the momentum buffers agree
   within 1e-5; with the bf16 net on both sides within the bf16 bound
-  stated at ``BF16_ATOL``.
+  stated at ``BF16_ATOL``, on 5x5 and on 19x19 (362 actions, go19_jumbo's
+  board).
 """
 
 import dataclasses
@@ -162,9 +163,9 @@ def test_batchnorm_train_mode_matches_flax():
 # ---------------------------------------------------------------------------
 
 
-def _configs(lib, dtype):
+def _configs(lib, dtype, n=N):
     cfg = lib.go9()
-    env = dataclasses.replace(cfg.env, board_size=N, num_stack=2)
+    env = dataclasses.replace(cfg.env, board_size=n, num_stack=2)
     net = dataclasses.replace(cfg.network, num_res_blocks=2, num_filters=16,
                               num_fc_units=16, inference_dtype=dtype)
     train = dataclasses.replace(cfg.train, init_lr=0.1, lr_decay=0.1, lr_milestones=(2, 4),
@@ -172,10 +173,10 @@ def _configs(lib, dtype):
     return env, net, train
 
 
-def _batches(num_actions, num_planes, seed=0):
+def _batches(num_actions, num_planes, seed=0, n=N):
     rng = np.random.RandomState(seed)
     for _ in range(STEPS):
-        states = (rng.rand(BATCH, N, N, num_planes) < 0.3).astype(np.int8)
+        states = (rng.rand(BATCH, n, n, num_planes) < 0.3).astype(np.int8)
         logits = rng.randn(BATCH, num_actions).astype(np.float32)
         pi = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
         values = rng.choice([-1.0, 0.0, 1.0], size=BATCH).astype(np.float32)
@@ -188,21 +189,21 @@ def _np_state(state):
                                      "training_steps": state.training_steps})
 
 
-def _run_both(dtype):
-    env, net_cfg, train = _configs(jax_config, dtype)
+def _run_both(dtype, n=N):
+    env, net_cfg, train = _configs(jax_config, dtype, n)
     flax_net = jax_build_network(env, net_cfg)
     tx, sched = jax_learner.make_optimizer(train.init_lr, train.lr_decay, train.lr_milestones,
                                            momentum=train.sgd_momentum,
                                            weight_decay=train.l2_regularization)
     j_state = jax_learner.create_train_state(flax_net, jax.random.PRNGKey(0),
-                                             (N, N, env.num_planes), tx)
-    env_t, net_t, train_t = _configs(config_lib, dtype)
+                                             (n, n, env.num_planes), tx)
+    env_t, net_t, train_t = _configs(config_lib, dtype, n)
     state = train_state_from_flax(_np_state(j_state), env_t, net_t, train_t, device="cpu")
     j_step = jax_learner.make_train_step(flax_net, tx, sched, argument_data=True)
     step = learner.make_train_step(dtype, argument_data=True)
 
     tids, losses = [], []
-    for i, (states, pi, values) in enumerate(_batches(env.num_actions, env.num_planes)):
+    for i, (states, pi, values) in enumerate(_batches(env.num_actions, env.num_planes, n=n)):
         key = jax.random.PRNGKey(20 + i)
         tids.append(_jax_transform_id(key))
         j_state, j_metrics = j_step(j_state, jnp.asarray(states), jnp.asarray(pi),
@@ -249,8 +250,9 @@ def test_three_float32_train_steps_match_jax():
     assert not np.allclose(state.net.stem_bn.running_var.numpy(), 1.0)
 
 
-def test_three_bfloat16_train_steps_track_jax():
-    ref, state, losses = _run_both("bfloat16")
+@pytest.mark.parametrize("n", [N, 19])  # 19: go19_jumbo's board, 362 actions
+def test_three_bfloat16_train_steps_track_jax(n):
+    ref, state, losses = _run_both("bfloat16", n)
     for (ref_pl, ref_vl), (pl, vl) in losses:
         assert abs(ref_pl - pl) < BF16_ATOL and abs(ref_vl - vl) < BF16_ATOL
     _assert_state_close(ref, state, BF16_ATOL, BF16_MOMENTUM_RTOL)

@@ -4,7 +4,8 @@ Both searches run with the same deterministic evaluation functions (a fixed
 prior, and a value that counts material — exact in float32 in both
 frameworks) and the same Dirichlet draws (the JAX package's, fed to the
 port). Visit counts and every integer field of the trees must be equal;
-value sums agree to float32 rounding of the backup sums.
+value sums agree to float32 rounding of the backup sums. The search with
+reuse across a move also runs at 19x19 (A=362), go19_jumbo's board.
 """
 
 import functools
@@ -25,16 +26,23 @@ from torch_parity import assert_tree_equal
 
 N, STACK, BATCH, SIMS = 5, 4, 4, 16
 A = N * N + 1
+# The reuse case also runs at go19_jumbo's board: A=362 actions.
+SIZES = [N, 19]
 # Value sums are float32 sums of many backups. The noised root priors
 # (max(P, 0) * 0.75 + noise * 0.25) differ by one ulp where XLA:CPU contracts
 # them into a fused multiply-add and PyTorch rounds twice.
 W_TOL = {"node_W": 1e-6, "child_W": 1e-6, "root_Q": 1e-6, "node_P": 1e-6,
          "child_P": 1e-6}
-PRIOR = np.random.RandomState(7).dirichlet(np.ones(A)).astype(np.float32)
 
 
-def _jax_eval(material: bool):
-    prior = jnp.asarray(PRIOR)
+@functools.lru_cache(maxsize=None)
+def _prior(n):
+    return np.random.RandomState(7).dirichlet(np.ones(n * n + 1)).astype(np.float32)
+
+
+def _jax_eval(material: bool, n: int = N):
+    prior = jnp.asarray(_prior(n))
+    a = n * n + 1
 
     def eval_fn(obs):
         b = obs.shape[0]
@@ -44,13 +52,14 @@ def _jax_eval(material: bool):
             v = (own - opp).astype(jnp.float32) * 0.05
         else:
             v = jnp.zeros((b,), jnp.float32)
-        return jnp.broadcast_to(prior, (b, A)), v
+        return jnp.broadcast_to(prior, (b, a)), v
 
     return eval_fn
 
 
-def _torch_eval(material: bool):
-    prior = torch.from_numpy(PRIOR)
+def _torch_eval(material: bool, n: int = N):
+    prior = torch.from_numpy(_prior(n))
+    a = n * n + 1
 
     def eval_fn(obs):
         b = obs.shape[0]
@@ -60,19 +69,19 @@ def _torch_eval(material: bool):
             v = (own - opp).float() * 0.05
         else:
             v = torch.zeros((b,))
-        return prior.expand(b, A), v
+        return prior.expand(b, a), v
 
     return eval_fn
 
 
 @functools.lru_cache(maxsize=None)
-def _engines():
-    return JaxGoEngine(board_size=N, num_stack=STACK), GoEngine(board_size=N, num_stack=STACK)
+def _engines(n=N):
+    return JaxGoEngine(board_size=n, num_stack=STACK), GoEngine(board_size=n, num_stack=STACK)
 
 
-def _roots(seed=0, moves=3):
+def _roots(seed=0, moves=3, n=N):
     """A batch of positions a few random legal moves into the game."""
-    jax_engine, _ = _engines()
+    jax_engine, _ = _engines(n)
     states = jax_engine.init_batch(BATCH)
     rng = np.random.RandomState(seed)
     for _ in range(moves):
@@ -83,32 +92,32 @@ def _roots(seed=0, moves=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _jitted_search(material, root_noise, max_new_sims):
-    jax_engine, _ = _engines()
+def _jitted_search(material, root_noise, max_new_sims, n=N):
+    jax_engine, _ = _engines(n)
     return jax.jit(functools.partial(
-        jax_mcts.batched_search, _jax_eval(material), jax_engine,
+        jax_mcts.batched_search, _jax_eval(material, n), jax_engine,
         num_simulations=SIMS, root_noise=root_noise, max_new_sims=max_new_sims,
         return_trees=True))
 
 
-def _jax_search(states, rng, material, root_noise, prev=None, max_new_sims=None):
-    return _jitted_search(material, root_noise, max_new_sims)(states, rng, prev_trees=prev)
+def _jax_search(states, rng, material, root_noise, prev=None, max_new_sims=None, n=N):
+    return _jitted_search(material, root_noise, max_new_sims, n)(states, rng, prev_trees=prev)
 
 
-def _dirichlet(rng):
+def _dirichlet(rng, n=N):
     """The Dirichlet draws batched_search makes from ``rng``."""
     keys = jax.random.split(rng, BATCH)
-    alpha = jnp.full((A,), 0.03, jnp.float32)
+    alpha = jnp.full((n * n + 1,), 0.03, jnp.float32)
     return torch.from_numpy(np.array(
         jax.vmap(lambda k: jax.random.dirichlet(k, alpha))(keys)))
 
 
-def _torch_search(states, rng, material, root_noise, prev=None, max_new_sims=None):
-    _, engine = _engines()
+def _torch_search(states, rng, material, root_noise, prev=None, max_new_sims=None, n=N):
+    _, engine = _engines(n)
     return mcts.batched_search(
-        _torch_eval(material), engine, GameState.from_numpy(states),
+        _torch_eval(material, n), engine, GameState.from_numpy(states),
         num_simulations=SIMS, root_noise=root_noise,
-        dirichlet_noise=_dirichlet(rng) if root_noise else None,
+        dirichlet_noise=_dirichlet(rng, n) if root_noise else None,
         prev_trees=prev, max_new_sims=max_new_sims, return_trees=True)
 
 
@@ -124,27 +133,29 @@ def test_search_matches_jax(material, root_noise):
     assert int(np.asarray(ref.child_N).sum()) == BATCH * (SIMS - 1)
 
 
-def test_reuse_across_a_move_matches_jax():
+@pytest.mark.parametrize("n", SIZES)
+def test_reuse_across_a_move_matches_jax(n):
     """Search, move, re-root, and search again on the carried trees with a
     shortened loop (``max_new_sims``)."""
-    jax_engine, engine = _engines()
-    states = _roots(seed=3)
+    jax_engine, engine = _engines(n)
+    a = n * n + 1
+    states = _roots(seed=3, n=n)
     rng1, rng2 = jax.random.split(jax.random.PRNGKey(9))
-    ref1, ref_trees = _jax_search(states, rng1, True, True)
-    out1, out_trees = _torch_search(states, rng1, True, True)
+    ref1, ref_trees = _jax_search(states, rng1, True, True, n=n)
+    out1, out_trees = _torch_search(states, rng1, True, True, n=n)
     assert_tree_equal(ref1._asdict(), out1._asdict(), W_TOL)
 
     move = jnp.argmax(ref1.child_N, axis=-1).astype(jnp.int32)
     new_states = jax_engine.step_batch(states, move)
     ref_trees = jax_mcts.reroot_trees(ref_trees, move, new_states.done,
-                                      new_states, A)
+                                      new_states, a)
     out_trees = mcts.reroot_trees(out_trees, torch.from_numpy(np.array(move)),
                                   torch.from_numpy(np.array(new_states.done)),
-                                  GameState.from_numpy(new_states), A)
+                                  GameState.from_numpy(new_states), a)
     assert_tree_equal(ref_trees, out_trees, W_TOL)
 
-    ref2, ref_trees = _jax_search(new_states, rng2, True, True, ref_trees, 6)
-    out2, out_trees = _torch_search(new_states, rng2, True, True, out_trees, 6)
+    ref2, ref_trees = _jax_search(new_states, rng2, True, True, ref_trees, 6, n)
+    out2, out_trees = _torch_search(new_states, rng2, True, True, out_trees, 6, n)
     assert_tree_equal(ref2._asdict(), out2._asdict(), W_TOL)
     assert_tree_equal(ref_trees, out_trees, W_TOL)
     assert (np.asarray(ref2.child_N).sum(-1) > 6).any()  # visits were carried

@@ -129,10 +129,10 @@ def equivalence_configs():
     return env, net, cfg.train
 
 
-def _local_moments(xf):
+def _local_moments(xf, reduced=None):
     """This rank's batch only: what a data-parallel BatchNorm must not do."""
     mean = xf.mean(dim=(0, 2, 3))
-    return mean, torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    return mean, torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0), None
 
 
 def _no_model_sum(x):

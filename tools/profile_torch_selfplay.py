@@ -2,10 +2,11 @@
 
     python3 tools/profile_torch_selfplay.py [--config go9] [--moves 3] [--rate-only]
 
-Runs the port's self-play step for a named config (default go9: B=1024
-games, bf16 net with random weights, 200 simulations, reuse,
-max_new_sims=120; gomoku13: 380 simulations, max_new_sims=240) on the
-GPU: one warm-up move,
+Runs the port's self-play step for a named config at its
+``parallel.selfplay_batch_size`` games (default go9: B=1024, bf16 net with
+random weights, 200 simulations, reuse, max_new_sims=120; gomoku13: 380
+simulations, max_new_sims=240; go19_jumbo: B=2048, 800 simulations,
+max_new_sims=480) on the GPU: one warm-up move,
 ``--moves`` timed moves without the profiler (their mean gives env-steps/s),
 then one move under ``torch.profiler`` (skipped with ``--rate-only``).
 The search's phases are wrapped in ``record_function`` ranges by this script
@@ -43,7 +44,6 @@ from alpha_zero_tpu_torch.training import selfplay  # noqa: E402
 from alpha_zero_tpu_torch.training.pipeline import build_engine  # noqa: E402
 from alpha_zero_tpu_torch.utils.device import card_line, device_kernels  # noqa: E402
 
-BATCH = 1024
 KERNELS = {"K1": "select_leaf_kernel", "K2": "write_rows_kernel"}  # names in the trace
 PHASES = ("select", "gather_state", "engine_step", "materialize", "history",
           "net", "expand_backup", "reroot")
@@ -103,8 +103,9 @@ def main(argv=None) -> None:
     net = build_network(cfg.env, cfg.network, device=dev, seed=0)
     step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
+    batch = cfg.parallel.selfplay_batch_size
     sp = selfplay.init_selfplay_state(
-        engine, BATCH, gen, -1.0, cfg.resign.disable_resign_ratio,
+        engine, batch, gen, -1.0, cfg.resign.disable_resign_ratio,
         reuse_num_simulations=cfg.search.num_simulations, device=dev)
 
     def move():
@@ -118,9 +119,9 @@ def main(argv=None) -> None:
     move()  # warm-up
     times = [move() for _ in range(args.moves)]
     plain_s = sum(times) / len(times)
-    print(f"card: {card}; {args.config}, batch {BATCH}; moves without profiler "
+    print(f"card: {card}; {args.config}, batch {batch}; moves without profiler "
           + ", ".join(f"{x:.3f}" for x in times) + f" s: mean {plain_s:.3f} s, "
-          f"{BATCH / plain_s:.1f} env-steps/s", flush=True)
+          f"{batch / plain_s:.1f} env-steps/s", flush=True)
     if args.rate_only:
         return
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
