@@ -22,7 +22,7 @@ checkpoints. This package never reads orbax itself.
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -109,19 +109,25 @@ def states_equal(a: TrainState, b: TrainState) -> bool:
             and a.scheduler.state_dict() == b.scheduler.state_dict())
 
 
-def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+def list_checkpoints(ckpt_dir: str) -> List[Tuple[int, str]]:
+    """``(training_steps, name)`` of every checkpoint in ``ckpt_dir``, in
+    step order. Names that do not end in a step (a ``.tmp`` file a crash
+    left mid-write) are skipped."""
     if not os.path.isdir(ckpt_dir):
-        return None
-    candidates = []
+        return []
+    found = []
     for name in os.listdir(ckpt_dir):
         if name.startswith("training_steps_"):
             try:
-                candidates.append((int(name.rsplit("_", 1)[1]), name))
+                found.append((int(name.rsplit("_", 1)[1]), name))
             except ValueError:
                 continue
-    if not candidates:
-        return None
-    return os.path.join(ckpt_dir, max(candidates)[1])
+    return sorted(found)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    found = list_checkpoints(ckpt_dir)
+    return os.path.join(ckpt_dir, found[-1][1]) if found else None
 
 
 def checkpoint_step(path: str) -> int:

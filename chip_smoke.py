@@ -107,6 +107,22 @@ card against its CPU path on small inputs, then drives the port's paths:
   (``kept_bn_forward``) at batch ``BN_CHECK_BATCH``, cuDNN deterministic;
   K1 and K2 bit-equal to their plain versions on all 2048 lanes of move 2's
   searched tree and timed there.
+- [15] the engine parity sweep (``tools/device_parity.py:sweep``, the port
+  of the JAX tool): identical random games, the JAX tool's moves, through
+  ``step_batch`` on the card and on the CPU, every analysis field after
+  every step, at each board of ``SWEEPS`` (go9 and gomoku13 at B=256-4096,
+  go19 at B=256-2048); every batch OK, stones captured at go9 and go19.
+- [16] the backfill evaluator (``tools/backfill_eval.py:backfill``) on
+  [8]'s checkpoints with [8]'s config (``eval_games=2``, its pro games and
+  dataset cache): the JAX package's header, every column but ``datetime``
+  equal to [8]'s in-run ``evaluation.csv`` rows, 199 K1 and 398 K2 launches
+  every ply; then a metrics-only pass (batch 8192) within
+  ``METRICS_ONLY_RTOL`` and ``METRICS_ONLY_FLIPS`` of those rows' pro
+  metrics.
+- [17] the root-visit histogram (``tools/visits_hist.py``) at go9, B=1024,
+  ``VISITS_WARM`` warm and ``VISITS_STEPS`` measured moves with random
+  weights of seed 0: 120 K1 and 240 K2 launches a move, every N_root in
+  [1, 200], the histogram's shares summing to 1; prints the report.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -119,19 +135,22 @@ the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
 kernels' launch counts are set to 0 before each of [5], [7], [8], [9],
-[13], [14] and [10], [11] and [12] (in each of their ranks) and read after it;
+[13], [14], [16], [17] and [10], [11] and [12] (in each of their ranks) and
+read after it;
 ``launches`` sums them,
 ``launches_by_path`` splits them (``go9_training`` is [8]'s self-play and
 profiled move, ``go9_eval`` its evaluation plies and [9]'s eval game,
 ``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks,
 ``go9_mdl2`` [11]'s and ``dryrun`` [12]'s four, each counted in its own
 process and carried back, ``go19_gui`` [13]'s GUI game, ``go19_b2048``
-[14]'s self-play). ``go19_jumbo_b1_*`` are K1's and K2's times on [13]'s
+[14]'s self-play, ``go9_backfill`` [16]'s evaluation plies, ``go9_visits``
+[17]'s moves). ``go19_jumbo_b1_*`` are K1's and K2's times on [13]'s
 searched tree, ``go19_jumbo_b2048_*`` on [14]'s.
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
-JSON object with each kernel's launches, error and times; the last line is
+JSON object with each kernel's launches, error and times, and before that
+come the seconds of each phase; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root (the
 package must sit beside this file).
 """
@@ -210,6 +229,28 @@ MDL_LOSS_ATOL = 1e-3
 # moves logits by O(1).
 MDL_NET_ROWS = 256
 MDL_NET_ATOL = 0.1
+# [15] sweeps the engines on the card against the CPU at these boards,
+# batch sizes and step counts (game, board, batches, steps): long enough
+# for captures and ko at go9 and for captures at go19 (60 random go19
+# steps at B=2048 capture, 20 do not), finished games at gomoku13.
+SWEEPS = (("go", 9, (256, 1024, 2048, 4096), 120),
+          ("gomoku", 13, (256, 1024, 2048, 4096), 60),
+          ("go", 19, (256, 1024, 2048), 60))
+# [16]'s metrics-only pass runs the bf16 net over the pro positions in
+# batches of 8192 where [8]'s rows ran 1024: the float32 sums of value error
+# and entropy come in another order (1.6e-6 relative apart on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, no top-k hit flipped), and cuDNN may pick
+# another kernel for another batch, which can round a bf16 activation the
+# other way and flip a near-tied top-k hit. The value error and entropy
+# (means over 10,454 positions) must stay within METRICS_ONLY_RTOL of the
+# rows', each top-k accuracy within METRICS_ONLY_FLIPS positions; the
+# weights of another checkpoint move them by percents and tens of
+# positions.
+METRICS_ONLY_RTOL = 1e-5
+METRICS_ONLY_FLIPS = 2
+# [17] plays this many warm and measured go9 moves at B=1024.
+VISITS_WARM = 2
+VISITS_STEPS = 2
 EVAL_HEADER = ["datetime", "training_steps", "game_length", "game_result", "num_passes",
                "black_elo_rating", "white_elo_rating", "eval_games", "latest_win_rate",
                "value_mse_error", "policy_entropy", "policy_top_1_accuracy",
@@ -636,7 +677,7 @@ def train_path(card, dev) -> dict:
           + ", ".join(f"{x:.2f}" for x in seen["eval_s"]) + " s per evaluation, "
           f"{out['eval_ply_s']:.3f} s per ply (B=1)", flush=True)
     print("[8] " + json.dumps(out), flush=True)
-    return out, ckpt_dir
+    return out, ckpt_dir, cfg
 
 
 def rank_checks(trainer) -> None:
@@ -1845,6 +1886,182 @@ def jumbo_path(card, dev) -> dict:
     return out, launches
 
 
+def sweep_path(card, dev) -> dict:
+    """[15]: the engine parity sweep (``tools/device_parity.py:sweep``) on
+    the card at each board of ``SWEEPS``: identical random games (the JAX
+    tool's moves) through ``step_batch`` on the card and on the CPU, every
+    field after every step. Returns each board's results and seconds."""
+    from alpha_zero_tpu_torch.tools import device_parity
+
+    out = {}
+    for game, n, batches, steps in SWEEPS:
+        label = f"{game} {n}x{n}"
+        t0 = time.time()
+        results = device_parity.sweep(game, n, batches, steps, dev)
+        secs = time.time() - t0
+        for r in results:
+            print(f"[15] {label} {device_parity.result_line(r)}", flush=True)
+        if not all(r["ok"] for r in results):
+            raise SystemExit(f"[15] {label}: the engine on the card diverged from the CPU")
+        captures = [r["captures"] for r in results]
+        if game == "go" and not sum(captures):
+            raise SystemExit(f"[15] {label}: no capture in {steps} steps")
+        print(f"[15] {label}: captured stones {captures}, ko points "
+              f"{[r['ko'] for r in results]}, finished games {[r['done'] for r in results]} "
+              f"at B={list(batches)} after {steps} steps; {secs:.1f} s on {card}", flush=True)
+        out[label] = {"seconds": secs, "results": results}
+    print("[15] " + json.dumps(out), flush=True)
+    return out
+
+
+def backfill_path(card, dev, cfg, ckpt_dir, train) -> tuple:
+    """[16]: ``tools/backfill_eval.py:backfill`` on [8]'s checkpoints with
+    [8]'s resolved config (``eval_games=2``, the pro games of
+    ``logs/go/9x9_matched/sgf``). Its rows must equal [8]'s in-run
+    ``evaluation.csv`` in every column but ``datetime``, every ply a
+    fresh-tree search of 199 K1 and 398 K2 launches, the run's dataset cache
+    reused; then a ``metrics_only`` pass, whose batch of 8192 is held to the
+    rows' pro metrics within ``METRICS_ONLY_RTOL`` and
+    ``METRICS_ONLY_FLIPS``. Returns the numbers and the backfill's (K1, K2)
+    launches."""
+    import csv
+
+    from alpha_zero_tpu_torch.eval import match as match_lib
+    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.tools import backfill_eval
+
+    select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    eval_rows, positions = train["evaluation_rows"], train["eval_dataset_positions"]
+    run_dir = os.path.dirname(ckpt_dir)
+    n = cfg.env.board_size
+    cache = os.path.join(ckpt_dir, f"eval_dataset_{n}x{n}.npz")
+    if not os.path.exists(cache):
+        raise SystemExit(f"[16] [8] left no dataset cache {cache}")
+    cache_mtime = os.stat(cache).st_mtime_ns
+
+    def read(path):
+        with open(path) as f:
+            header, *rows = csv.reader(f)
+        return header, [dict(zip(header, row)) for row in rows]
+
+    plies = []
+    make_match = match_lib.make_match_move_fn
+    match_lib.make_match_move_fn = lambda *a, **k: counting(make_match(*a, **k), plies)
+    rows_csv = os.path.join(run_dir, "evaluation_backfill.csv")
+    k0 = (select.launches, writer.launches)
+    t0 = time.time()
+    try:
+        rc = backfill_eval.backfill(cfg, ckpt_dir, rows_csv, cfg.run.eval_games_dir,
+                                    eval_games=cfg.run.eval_games, device=dev)
+    finally:
+        match_lib.make_match_move_fn = make_match
+    backfill_s = time.time() - t0
+    launches = (select.launches - k0[0], writer.launches - k0[1])
+    if rc != 0:
+        raise SystemExit(f"[16] backfill returned {rc}")
+    check_plies("[16] backfill", plies, cfg.search.num_simulations)
+    if os.stat(cache).st_mtime_ns != cache_mtime:
+        raise SystemExit("[16] the backfill rebuilt the run's dataset cache")
+    header, rows = read(rows_csv)
+    if header != EVAL_HEADER:
+        raise SystemExit(f"[16] backfill header {header}")
+    if len(rows) != len(eval_rows):
+        raise SystemExit(f"[16] {len(rows)} backfill rows, {len(eval_rows)} in-run rows")
+    for row, ref in zip(rows, eval_rows):
+        diff = [k for k in EVAL_HEADER[1:] if row[k] != ref[k]]
+        if diff:
+            raise SystemExit(f"[16] the backfill's row for step {ref['training_steps']} != "
+                             f"the run's in {diff}: "
+                             + "; ".join(f"{k} {row[k]} vs {ref[k]}" for k in diff))
+
+    metrics_csv = os.path.join(run_dir, "evaluation_backfill_metrics.csv")
+    t0 = time.time()
+    rc = backfill_eval.backfill(cfg, ckpt_dir, metrics_csv, cfg.run.eval_games_dir,
+                                metrics_only=True, device=dev)
+    metrics_s = time.time() - t0
+    header, metric_rows = read(metrics_csv)
+    if rc != 0 or header != ["datetime", "training_steps"] + EVAL_HEADER[9:]:
+        raise SystemExit(f"[16] metrics-only pass returned {rc}, header {header}")
+    worst = {"rel": 0.0, "flips": 0}
+    for row, ref in zip(metric_rows, eval_rows, strict=True):
+        if row["training_steps"] != ref["training_steps"]:
+            raise SystemExit(f"[16] metrics-only rows for steps {row['training_steps']}")
+        for k in EVAL_HEADER[9:11]:
+            rel = abs(float(row[k]) - float(ref[k])) / abs(float(ref[k]))
+            worst["rel"] = max(worst["rel"], rel)
+        for k in EVAL_HEADER[11:]:
+            flips = round(abs(float(row[k]) - float(ref[k])) * positions)
+            worst["flips"] = max(worst["flips"], flips)
+    print(f"[16] metrics-only pass (batch {backfill_eval.METRICS_BATCH}) against the run's "
+          f"rows (batch 1024): value error and entropy within {worst['rel']:.3e} relative, "
+          f"top-k hits apart by at most {worst['flips']} of {positions} positions", flush=True)
+    if worst["rel"] > METRICS_ONLY_RTOL or worst["flips"] > METRICS_ONLY_FLIPS:
+        raise SystemExit(f"[16] metrics-only pass off the run's rows past "
+                         f"{METRICS_ONLY_RTOL} relative or {METRICS_ONLY_FLIPS} hits")
+    out = {"config": "go9", "reduced": {"env.max_steps": GAME_STEPS}, "rows": len(rows),
+           "backfill_s": backfill_s, "plies": len(plies),
+           "ply_s": sum(s for _, _, s in plies) / len(plies), "launches": launches,
+           "metrics_only_s": metrics_s, "metrics_only_worst": worst,
+           "positions": positions}
+    print(f"[16] backfill of [8]'s {len(rows)} checkpoints on {card} (eval_games="
+          f"{cfg.run.eval_games}, pro metrics over {positions} positions from the run's "
+          f"cached dataset): every column but datetime equal to the run's evaluation.csv; "
+          f"{len(plies)} plies of {cfg.search.num_simulations - 1} K1 and "
+          f"{2 * (cfg.search.num_simulations - 1)} K2 launches; {backfill_s:.1f} s "
+          f"({out['ply_s']:.3f} s a ply); metrics-only pass {metrics_s:.1f} s", flush=True)
+    print("[16] " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def visits_path(card, dev) -> tuple:
+    """[17]: ``tools/visits_hist.py`` at go9 (200 simulations, reuse,
+    ``max_new_sims=120``, random weights of seed 0 in bf16), B=1024,
+    ``VISITS_WARM`` warm and ``VISITS_STEPS`` measured moves: 120 K1 and
+    240 K2 launches every move, every N_root in [1, 200], the histogram's
+    shares summing to 1; prints the report. Returns the numbers and the
+    (K1, K2) launches."""
+    import numpy as np
+
+    from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.tools import visits_hist
+    from alpha_zero_tpu_torch.training import selfplay
+
+    cfg = visits_hist.with_reuse(config_lib.go9())
+    sims, loop_len = cfg.search.num_simulations, cfg.search.max_new_sims
+    moves = []
+    make_step = selfplay.make_selfplay_step
+    selfplay.make_selfplay_step = lambda *a, **k: counting(make_step(*a, **k), moves)
+    t0 = time.time()
+    try:
+        v = visits_hist.root_visits(cfg, BATCH, VISITS_WARM, VISITS_STEPS, dev)
+    finally:
+        selfplay.make_selfplay_step = make_step
+    wall = time.time() - t0
+    counts = [(k1, k2) for k1, k2, _ in moves]
+    if counts != [(loop_len, 2 * loop_len)] * (VISITS_WARM + VISITS_STEPS):
+        raise SystemExit(f"[17] launches per move {counts}, expected "
+                         f"{VISITS_WARM + VISITS_STEPS} x ({loop_len}, {2 * loop_len})")
+    if v.shape != (BATCH * VISITS_STEPS,) or not (1 <= v.min() and v.max() <= sims):
+        raise SystemExit(f"[17] N_root of shape {v.shape} in [{v.min()}, {v.max()}], "
+                         f"expected {BATCH * VISITS_STEPS} in [1, {sims}]")
+    hist, _ = np.histogram(v, bins=visits_hist.EDGES)
+    if hist.sum() != v.size:
+        raise SystemExit(f"[17] the histogram's shares sum to {hist.sum() / v.size}")
+    lines = visits_hist.report(v, "go9", cfg.search, BATCH, VISITS_WARM)
+    for line in lines:
+        print(f"[17] {line}", flush=True)
+    move_s = [s for _, _, s in moves]
+    out = {"config": "go9", "batch": BATCH, "warm": VISITS_WARM, "steps": VISITS_STEPS,
+           "move_s": move_s, "wall_s": wall, "mean": float(v.mean()),
+           "full_budget": float((v >= sims).mean()),
+           "shares": (hist / v.size).tolist()}
+    print(f"[17] go9 root visits on {card}: {len(moves)} self-play moves of "
+          + ", ".join(f"{x:.2f}" for x in move_s)
+          + f" s ({loop_len} K1 and {2 * loop_len} K2 launches each); {wall:.1f} s", flush=True)
+    print("[17] " + json.dumps(out), flush=True)
+    return out, (sum(k1 for k1, _ in counts), sum(k2 for _, k2 in counts))
+
+
 def jumbo_entry(jumbo, kernel, which) -> dict:
     """A kernel's ``go19_jumbo_b2048_*`` keys of the JSON line, from [14]."""
     times = jumbo[kernel]
@@ -1858,6 +2075,14 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    t_start = last = time.time()
+    laps = {}
+
+    def lap(label):
+        """Seconds since the last lap, as ``laps[label]``."""
+        nonlocal last
+        laps[label], last = round(time.time() - last, 1), time.time()
+
     sys.path.insert(0, HERE)
     import alpha_zero_tpu_torch
 
@@ -1987,6 +2212,7 @@ def main() -> None:
     print(f"[4] card == CPU: engine (64 games x 60 moves, exact), search "
           f"(5x5, 16 sims, child_N exact), f32 net (max err {net_err:.2e})", flush=True)
 
+    lap("[1]-[4]")
     # --- 5. The main path: go9 self-play moves.
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
     select.launches = writer.launches = 0
@@ -2004,6 +2230,7 @@ def main() -> None:
           f"launches (kernels, copies and memsets; {loop_len} K1 and {2 * loop_len} K2 "
           f"among them)", flush=True)
 
+    lap("[5]")
     # --- 6. K2/K3 (row scatter) against their plain version, then the probe.
     scatters = (scatter_kernels.scatter_rows, scatter_kernels.scatter_rows_bulk)
     blend = scatter_kernels.blend_scatter
@@ -2123,6 +2350,7 @@ def main() -> None:
           f"{exp['graph_ms']:.5f} warm, {exp['cold_ms']:.5f} cold; put_rows x2 "
           f"{set_line('put_rows', 'expand')['graph_ms']:.5f}", flush=True)
 
+    lap("[6]")
     # --- 7. gomoku13 self-play: K1 and K2 at T=381, A=169 on a real search.
     g_cfg = config_lib.gomoku13()
     g_engine = build_engine(g_cfg.env)
@@ -2141,41 +2369,65 @@ def main() -> None:
     del g_sp
     check_engine_on_card("[7]", g_engine, 64, dev)
 
+    lap("[7]")
     # --- 8. The training path: cli.train at go9 full width, the evaluator on.
     select.launches = writer.launches = 0
-    train, ckpt_dir = train_path(card, dev)
+    train, ckpt_dir, train_cfg = train_path(card, dev)
     eval_k1, eval_k2 = train["eval_launches"]
     launches["go9_training"] = (select.launches - eval_k1, writer.launches - eval_k2)
 
+    lap("[8]")
     # --- 9. Matches between [8]'s checkpoints: cli.match and an eval game.
     select.launches = writer.launches = 0
     matches, match_launches, game_launches = match_path(card, dev, ckpt_dir)
-    shutil.rmtree(ckpt_dir)  # 24 MB a checkpoint; the CSVs stay
     launches["go9_eval"] = (eval_k1 + game_launches[0], eval_k2 + game_launches[1])
     launches["go9_match"] = match_launches
 
+    lap("[9]")
     # --- 10. Data parallel: cli.train with parallel.dp=2, two ranks on the card.
     select.launches = writer.launches = 0
     dp, rank_launches = dp_path(card, dev)
     launches["go9_dp2"] = tuple(sum(x) for x in zip(*rank_launches))
 
+    lap("[10]")
     # --- 11. The model axis: cli.train with parallel.mdl=2, two ranks on the card.
     select.launches = writer.launches = 0
     _, mdl_launches = mdl_path(card, dev)
     launches["go9_mdl2"] = tuple(sum(x) for x in zip(*mdl_launches))
 
+    lap("[11]")
     # --- 12. The dry run: dp=2 x mdl=2, four ranks on the card.
     select.launches = writer.launches = 0
     _, dryrun_launches = dryrun_path(card, dev)
     launches["dryrun"] = tuple(sum(x) for x in zip(*dryrun_launches))
 
+    lap("[12]")
     # --- 13. cli.analysis, then the GUI's AI-vs-AI game at go19_jumbo width.
     select.launches = writer.launches = 0
     gui, launches["go19_gui"] = gui_path(card, dev)
 
+    lap("[13]")
     # --- 14. go19_jumbo self-play at B=2048 and training at batch 2048.
     select.launches = writer.launches = 0
     jumbo, launches["go19_b2048"] = jumbo_path(card, dev)
+    lap("[14]")
+
+    # --- 15. The engine parity sweep: go9, gomoku13 and go19 on the card vs the CPU.
+    sweep_path(card, dev)
+    lap("[15]")
+
+    # --- 16. The backfill evaluator on [8]'s checkpoints, against [8]'s rows.
+    select.launches = writer.launches = 0
+    _, launches["go9_backfill"] = backfill_path(card, dev, train_cfg, ckpt_dir, train)
+    shutil.rmtree(ckpt_dir)  # 24 MB a checkpoint; the CSVs stay
+    lap("[16]")
+
+    # --- 17. The root-visit histogram at go9, B=1024.
+    select.launches = writer.launches = 0
+    _, launches["go9_visits"] = visits_path(card, dev)
+    lap("[17]")
+    print(f"chip_smoke: seconds by phase {json.dumps(laps)}; {time.time() - t_start:.1f} s "
+          "in all", flush=True)
 
     # Device times from the probe's CUDA-graph replays; K2's at the go9
     # materialize set (13 arrays: no single PyTorch call writes them), with

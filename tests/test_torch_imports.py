@@ -20,7 +20,10 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                          REPO / "tools" / "profile_torch_selfplay.py",
                                          REPO / "tools" / "dma_probe_torch.py",
-                                         REPO / "tools" / "select_bench_torch.py"]
+                                         REPO / "tools" / "select_bench_torch.py",
+                                         REPO / "tools" / "device_parity_torch.py",
+                                         REPO / "tools" / "visits_hist_torch.py",
+                                         REPO / "tools" / "backfill_eval_torch.py"]
 
 
 def _port_modules():
@@ -157,3 +160,34 @@ def test_evaluator_path_entry_points_default_to_cuda(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_repo_tools_default_to_cuda(tmp_path, monkeypatch):
+    """The engine parity sweep, the root-visit histogram and the backfill
+    evaluator run on ``cuda`` unless asked for the CPU, through their
+    functions and their CLIs."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from alpha_zero_tpu_torch import config as config_lib
+    from alpha_zero_tpu_torch.tools import backfill_eval, device_parity, visits_hist
+
+    cfg = config_lib.go9()
+    monkeypatch.delenv("DEVICE", raising=False)
+    calls = [
+        lambda: device_parity.sweep("go", 9),
+        lambda: device_parity.main([]),
+        lambda: visits_hist.root_visits(visits_hist.with_reuse(cfg), 2, 0, 1),
+        visits_hist.main,
+        lambda: backfill_eval.backfill(cfg, str(tmp_path), str(tmp_path / "e.csv")),
+        lambda: backfill_eval.main(["--ckpt-dir", str(tmp_path),
+                                    "--out", str(tmp_path / "e.csv")]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    backfill_args = ["--ckpt-dir", str(tmp_path), "--out", str(tmp_path / "e.csv")]
+    for tool, args in (("device_parity_torch.py", []), ("visits_hist_torch.py", []),
+                       ("backfill_eval_torch.py", backfill_args)):
+        proc = subprocess.run([sys.executable, str(REPO / "tools" / tool)] + args,
+                              cwd=tmp_path, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, tool
