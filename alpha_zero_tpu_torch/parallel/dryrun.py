@@ -139,14 +139,8 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
     mesh = make_mesh(n_ranks, mdl)
     if resolve_device(device).type == "cuda":
         _build.build_all()  # once, before the ranks load the kernels
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.SimpleQueue()
-    # The reports are small (well under a pipe's buffer), so the ranks can
-    # put them and end before the queue is read.
-    torch.multiprocessing.spawn(
-        _rank, nprocs=n_ranks,
-        args=(n_ranks, mdl, multihost.local_address(), str(device), results))
-    ranks = sorted((results.get() for _ in range(n_ranks)), key=lambda r: r["rank"])
+    ranks = multihost.spawn_and_collect(
+        _rank, n_ranks, (n_ranks, mdl, multihost.local_address(), str(device)))
     r0 = ranks[0]
     if not all(math.isfinite(x) for x in r0["losses"]):
         raise RuntimeError(f"dry run: the train step's losses are not finite: {r0['losses']}")

@@ -93,6 +93,29 @@ def local_address() -> str:
         return f"localhost:{s.getsockname()[1]}"
 
 
+def spawn_and_collect(fn, nprocs: int, args: Sequence) -> list:
+    """Runs ``fn(rank, *args, results)`` in ``nprocs`` spawned processes and
+    returns the one dict each puts on the queue ``results``, in the order of
+    its ``"rank"``. The queue is read while the ranks run: a record can
+    outgrow a pipe's buffer, and its ``put`` then waits for this reader.
+    Raises when a rank fails or ends without its record."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.SimpleQueue()
+    procs = torch.multiprocessing.spawn(fn, nprocs=nprocs, join=False,
+                                        args=(*args, results))
+    records, ended = [], False
+    while len(records) < nprocs:
+        if not results.empty():
+            records.append(results.get())
+        elif ended:
+            raise RuntimeError(f"the ranks ended with {len(records)} of {nprocs} records")
+        else:
+            ended = procs.join(timeout=0.1)  # raises when a rank failed
+    while not procs.join():
+        pass
+    return sorted(records, key=lambda r: r["rank"])
+
+
 def initialize(coordinator_address: str, num_processes: int, process_id: int,
                device="cuda", mdl: int = 1) -> torch.device:
     """Makes this process rank ``process_id`` of ``num_processes`` on a mesh

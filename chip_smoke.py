@@ -6,21 +6,25 @@ Builds the port's CUDA kernels from ``alpha_zero_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card, checks the port on the
 card against its CPU path on small inputs, then drives the port's paths:
 
-- [5] go9 self-play moves (9x9 Go, 10 blocks x 128 filters in bf16 with
-  random weights, 200 simulations, subtree reuse, max_new_sims=120) at
-  B=1024 games through ``init_selfplay_state`` and ``make_selfplay_step``:
-  every select through the select kernel K1 (120 launches a move), every
-  tree write through the tree-row writer K2 (2 a simulation, 240 a move);
-  one more move under ``torch.profiler`` counts all its device kernels.
+- [5] go9 self-play (9x9 Go, 10 blocks x 128 filters in bf16 with random
+  weights of seed 0, 200 simulations, subtree reuse, max_new_sims=120) at
+  B=1024 games through the self-play bench (``tools/bench.py:run``, the
+  port of ``bench.py``, over ``init_selfplay_state`` and
+  ``make_selfplay_step``), ``TIMED_MOVES`` timed moves after one warm-up:
+  its JSON lines as ``bench.py`` prints them, every select through the
+  select kernel K1 (120 launches a move), every tree write through the
+  tree-row writer K2 (2 a simulation, 240 a move), every timed move's
+  ``search_pi``, ``root_visits``, values and legality.
 - [6] K2 and K3 bit-equal to their plain versions on the searched go9
   tree's materialize and expand sets, go19-shaped int16 rows and 1-byte
   rows, then the row-scatter probe
   (``alpha_zero_tpu_torch/tools/dma_probe.py:run_probe``, the entry point
   of K3 and the timer of both) at go9 and gomoku13 tree shapes.
 - [7] gomoku13 self-play (13x13 Gomoku, 10 x 40 net in bf16, padding-3
-  stem, 380 simulations, reuse, max_new_sims=240) at B=1024: 240 K1 and
-  480 K2 launches a move, K2 bit-equal on the searched tree's sets (int16
-  2-byte rows), the Gomoku engine on the card equal to its CPU path.
+  stem, 380 simulations, reuse, max_new_sims=240) at B=1024 through the
+  bench as in [5], ``GOMOKU_TIMED_MOVES`` timed moves: 240 K1 and 480 K2
+  launches a move, K2 bit-equal on the searched tree's sets (int16 2-byte
+  rows), the Gomoku engine on the card equal to its CPU path.
 - [8] the training path: ``cli.train.main`` in-process at go9 full width
   (bf16 compute, float32 master weights, 1024 self-play games, train batch
   1024; ``env.max_steps=GAME_STEPS`` is the one cut), two generations of 10 steps
@@ -123,6 +127,11 @@ card against its CPU path on small inputs, then drives the port's paths:
   ``VISITS_WARM`` warm and ``VISITS_STEPS`` measured moves with random
   weights of seed 0: 120 K1 and 240 K2 launches a move, every N_root in
   [1, 200], the histogram's shares summing to 1; prints the report.
+- [18] the self-play bench at go19_jumbo (``JUMBO_BENCH``: full width and
+  game length, 256 games), checked as in [5] with 480 K1 and 960 K2
+  launches a move; then ``tools/bench_torch.py`` as a subprocess with
+  ``BENCH_DP=2`` at ``BENCH_DP_RUN`` (two gloo ranks on the card): its
+  lines and each rank's launches a move.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -135,16 +144,20 @@ the same three ways on the go9 materialize set (its ``ms``; the expand set
 and the single f32 array beside it), each in turns with the ``put_rows``
 sequence it replaced, and with every lane idle (its launch floor). The
 kernels' launch counts are set to 0 before each of [5], [7], [8], [9],
-[13], [14], [16], [17] and [10], [11] and [12] (in each of their ranks) and
-read after it;
+[13], [14], [16], [17], [18]'s go19_jumbo run and [10], [11] and [12] (in
+each of their ranks) and read after it;
 ``launches`` sums them,
-``launches_by_path`` splits them (``go9_training`` is [8]'s self-play and
+``launches_by_path`` splits them (``go9_selfplay`` is [5]'s bench,
+``gomoku13_selfplay`` [7]'s bench, ``go9_training`` [8]'s self-play and
 profiled move, ``go9_eval`` its evaluation plies and [9]'s eval game,
 ``go9_match`` the ``cli.match`` run, ``go9_dp2`` [10]'s two ranks,
 ``go9_mdl2`` [11]'s and ``dryrun`` [12]'s four, each counted in its own
 process and carried back, ``go19_gui`` [13]'s GUI game, ``go19_b2048``
 [14]'s self-play, ``go9_backfill`` [16]'s evaluation plies, ``go9_visits``
-[17]'s moves). ``go19_jumbo_b1_*`` are K1's and K2's times on [13]'s
+[17]'s moves, ``go19_jumbo_bench`` [18]'s in-process run,
+``go9_bench_dp2`` the timed moves of [18]'s two ranks, summed from the
+CLI's stderr line: their warm-up move runs in the ranks, uncounted).
+``go19_jumbo_b1_*`` are K1's and K2's times on [13]'s
 searched tree, ``go19_jumbo_b2048_*`` on [14]'s.
 
 Every phase raises on failure; there is no CPU fallback. The line before
@@ -167,8 +180,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 1024
-TIMED_MOVES = 3
-GOMOKU_TIMED_MOVES = 2
+# [5] and [7] run the self-play bench at go9 and gomoku13, B=1024: this
+# many timed moves after one warm-up (go9: bench.py's default).
+TIMED_MOVES = 8
+GOMOKU_TIMED_MOVES = 4
 TRAIN_STEPS = 20
 MATCH_GAMES = 64
 # [8]'s, [9]'s and [10]'s games end at this many moves. 24 until the model
@@ -176,8 +191,10 @@ MATCH_GAMES = 64
 # 2-4 s a ply, took 600 s of a 1287 s run on a slower card, past the 1200 s
 # the script has. [10] kept 24 until [13] added go19_jumbo's GUI game; 12
 # until [14] added go19_jumbo's self-play (237 s on an NVIDIA H100 80GB
-# HBM3 at 700.00 W), which would have brought the run there to ~870 s.
-GAME_STEPS = 8
+# HBM3 at 700.00 W); 8 until [18] added the bench, when a run on a slow
+# host (a B=1 ply 3.85-4.27 s, against 2.67 s) took 1154.8 s, the
+# evaluations of [8] and [16] 262 s of it.
+GAME_STEPS = 6
 # [13]'s AI-vs-AI game stops after one move of each side: a go19_jumbo ply
 # is an 800-simulation search at B=1, launch-bound like go9's 2-4 s ply.
 GUI_PLIES = 2
@@ -231,9 +248,10 @@ MDL_NET_ROWS = 256
 MDL_NET_ATOL = 0.1
 # [15] sweeps the engines on the card against the CPU at these boards,
 # batch sizes and step counts (game, board, batches, steps): long enough
-# for captures and ko at go9 and for captures at go19 (60 random go19
-# steps at B=2048 capture, 20 do not), finished games at gomoku13.
-SWEEPS = (("go", 9, (256, 1024, 2048, 4096), 120),
+# for captures at go9 and go19 (60 random go19 steps at B=2048 capture, 20
+# do not), finished games at gomoku13. go9 ran 120 steps until [18] was
+# added (captures in every batch and ko from B=256 on).
+SWEEPS = (("go", 9, (256, 1024, 2048, 4096), 60),
           ("gomoku", 13, (256, 1024, 2048, 4096), 60),
           ("go", 19, (256, 1024, 2048), 60))
 # [16]'s metrics-only pass runs the bf16 net over the pro positions in
@@ -251,77 +269,82 @@ METRICS_ONLY_FLIPS = 2
 # [17] plays this many warm and measured go9 moves at B=1024.
 VISITS_WARM = 2
 VISITS_STEPS = 2
+# [18] runs the self-play bench in-process at (config, batch, timed moves)
+# after one warm-up move: go19_jumbo at its full width and game length but
+# 256 of its 2048 games (a B=2048 move takes ~57 s); then its CLI with
+# BENCH_DP=2 at BENCH_DP_RUN.
+JUMBO_BENCH = ("go19_jumbo", 256, 2)
+BENCH_DP_RUN = ("go9", 256, 2)
 EVAL_HEADER = ["datetime", "training_steps", "game_length", "game_result", "num_passes",
                "black_elo_rating", "white_elo_rating", "eval_games", "latest_win_rate",
                "value_mse_error", "policy_entropy", "policy_top_1_accuracy",
                "policy_top_3_accuracy", "policy_top_5_accuracy"]
 
 
-def play_moves(label, cfg, engine, net, moves, dev, profiled=False):
-    """Self-play ``moves`` moves of ``BATCH`` games of ``cfg`` through
-    ``init_selfplay_state``/``make_selfplay_step``, each checked: exactly
-    ``max_new_sims`` K1 and twice as many K2 launches, every move legal and
-    on an empty point, ``search_pi`` rows summing to 1, ``root_visits`` within
-    the budget, finite values. With ``profiled``, one more move runs under
-    ``torch.profiler``. Returns the env-steps/s of the timed moves (all but
-    the first, a warm-up, and the profiled one), the self-play state after
-    the last move and the profiled move's device kernel launches (None)."""
+def check_bench_lines(label, lines, metric, steps) -> None:
+    """The bench's JSON lines as ``bench.py`` prints them: ``steps - 1``
+    partial lines, then the result, every one of ``metric`` with a value
+    above 0."""
+    keys = ["metric", "value", "unit", "vs_baseline", "nn_sims_per_s", "budget_sims_per_s"]
+    want = [keys + ["partial"]] * (steps - 1) + [keys]
+    if [list(x) for x in lines] != want:
+        raise SystemExit(f"{label} lines {lines}, expected {steps - 1} partial lines "
+                         "and the result")
+    if any(x["metric"] != metric or not x["value"] > 0 for x in lines):
+        raise SystemExit(f"{label} lines {lines}, expected metric {metric} and values > 0")
+
+
+def bench_run(label, card, name, batch, steps, dev) -> tuple:
+    """The self-play bench (``tools/bench.py:run``) in-process: ``name`` at
+    ``batch`` games with random weights of seed 0, one warm-up and
+    ``steps`` timed moves, the launch counts set to 0 before it. Checks the
+    lines as ``bench.py`` prints them, ``max_new_sims`` K1 and twice as
+    many K2 launches in every move (the warm-up's too) and every timed
+    move: legal on the games it was played on, ``search_pi`` rows summing
+    to 1, ``root_visits`` within the budget, finite values.
+    Returns the result, its numbers and the (K1, K2) launches of the
+    run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
-    from alpha_zero_tpu_torch.training import selfplay
+    from alpha_zero_tpu_torch.tools import bench
 
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
-    step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    sp = selfplay.init_selfplay_state(
-        engine, BATCH, gen, resign_threshold=-1.0,
-        disable_resign_ratio=cfg.resign.disable_resign_ratio,
-        reuse_num_simulations=cfg.search.num_simulations, device=dev)
-    loop_len = cfg.search.max_new_sims
-    torch.cuda.synchronize()
-    elapsed = 0.0
-    kernels = None
-    for move_idx in range(moves + int(profiled)):
-        before, writes_before = select.launches, writer.launches
-        legal, board = sp.games.legal, sp.games.board.flatten(1)
-        t0 = time.time()
-        if move_idx == moves:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                sp, out = step(sp, gen, -1.0)
-                torch.cuda.synchronize()
-            kernels = sum(e.count for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA)
-        else:
-            sp, out = step(sp, gen, -1.0)
-            torch.cuda.synchronize()
-        if 0 < move_idx < moves:
-            elapsed += time.time() - t0
-        where = f"{label} move {move_idx}"
-        if select.launches - before != loop_len:
-            raise SystemExit(f"{where}: {select.launches - before} select launches, "
-                             f"expected {loop_len}")
-        if writer.launches - writes_before != 2 * loop_len:
-            raise SystemExit(f"{where}: {writer.launches - writes_before} tree-row "
-                             f"writer launches, expected {2 * loop_len}")
+    b = bench.resolve(name, batch, steps=steps)
+    select.launches = writer.launches = 0
+    t0 = time.time()
+    result = bench.run(name, batch=batch, steps=steps, device=dev)
+    wall = time.time() - t0
+    launches = (select.launches, writer.launches)
+    check_bench_lines(label, result.lines, b.metric, steps)
+    per_move = (b.loop_len, 2 * b.loop_len)
+    if result.launches != [[per_move] * steps]:
+        raise SystemExit(f"{label} launches a timed move {result.launches}, expected "
+                         f"{per_move}")
+    if launches != tuple((1 + steps) * k for k in per_move):
+        raise SystemExit(f"{label} {launches} launches in the run, expected {1 + steps} "
+                         f"moves of {per_move}")
+    for i, (out, legal) in enumerate(zip(result.moves, result.legal)):
+        where = f"{label} timed move {i}"
         move = out.move.long()
-        if not ((move >= 0) & (move < engine.num_actions)).all():
-            raise SystemExit(f"{where}: move out of range")
-        if not (legal.gather(1, move[:, None]) == 1.0).all():
-            raise SystemExit(f"{where}: illegal move")
-        on_board = move < board.shape[1]  # not a pass
-        stones = board.gather(1, move.clamp(max=board.shape[1] - 1)[:, None])[:, 0]
-        if not (stones[on_board] == 0).all():
-            raise SystemExit(f"{where}: a move on an occupied point")
-        if not torch.allclose(out.search_pi.sum(-1), torch.ones(BATCH, device=dev),
-                              atol=1e-5):
+        if not ((move >= 0) & (move < legal.shape[1])).all() or not bool(
+                (legal.gather(1, move[:, None]) == 1).all()):
+            raise SystemExit(f"{where}: an illegal move")
+        if not torch.allclose(out.search_pi.sum(-1), torch.ones(batch), atol=1e-5):
             raise SystemExit(f"{where}: search_pi rows do not sum to 1")
-        if not (out.root_visits <= cfg.search.num_simulations).all():
-            raise SystemExit(f"{where}: root_visits above the budget")
+        if not (out.root_visits <= b.sims).all():
+            raise SystemExit(f"{where}: root_visits above the budget of {b.sims}")
         if not all(torch.isfinite(x).all() for x in (out.root_q, out.best_child_q)):
             raise SystemExit(f"{where}: non-finite values")
-    return BATCH * (moves - 1) / elapsed, sp, kernels
+    values = [x["value"] for x in result.lines]
+    out = {"batch": batch, "steps": steps, "env_steps_per_s": values[-1],
+           "partial": values[:-1], "nn_sims_per_s": result.lines[-1]["nn_sims_per_s"],
+           "peak_gib": result.peak_bytes[0] / 2**30, "wall_s": wall}
+    print(f"{label} bench B={batch} on {card}: {values[-1]} env-steps/s over {steps} timed "
+          f"moves after 1 warm-up (partial {values[:-1]}), {per_move[0]} K1 and "
+          f"{per_move[1]} K2 launches a move, peak {out['peak_gib']:.2f} GiB; {wall:.1f} s",
+          flush=True)
+    return result, out, launches
 
 
 def check_engine_on_card(label, engine, games, dev):
@@ -1476,7 +1499,10 @@ def match_path(card, dev, ckpt_dir) -> dict:
 
     # K1 and K2 on searched trees at B=1 and B=2 (bit-equal), and at B=1
     # and B=64 (timed): fresh go9 searches with the step-20 net from
-    # positions 6 random moves in.
+    # positions 6 random moves into games of 8 moves (GAME_STEPS until [18]
+    # was added; a 6-move game is over there), so that the times compare
+    # with earlier runs'.
+    engine = build_engine(dataclasses.replace(cfg.env, max_steps=8))
     gen = torch.Generator(device=dev).manual_seed(12)
     kw = dict(path_cap=min(sims + 1, engine.max_steps + 2),
               c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
@@ -2062,6 +2088,52 @@ def visits_path(card, dev) -> tuple:
     return out, (sum(k1 for k1, _ in counts), sum(k2 for _, k2 in counts))
 
 
+def bench_path(card, dev) -> tuple:
+    """[18]: the self-play bench in-process at ``JUMBO_BENCH`` (``bench_run``),
+    then ``tools/bench_torch.py`` as a subprocess with ``BENCH_DP=2`` at
+    ``BENCH_DP_RUN`` (two gloo ranks on the card): rc 0, its stdout lines,
+    each rank's launches a timed move from its stderr line. Returns the
+    numbers and the (K1, K2) launches by run (the dp=2 run's timed moves
+    only: its warm-up runs in the ranks, uncounted)."""
+    import subprocess
+
+    from alpha_zero_tpu_torch.tools import bench
+
+    name, batch, steps = JUMBO_BENCH
+    _, jumbo, jumbo_launches = bench_run(f"[18] {name}", card, name, batch, steps, dev)
+    out, launches = {name: jumbo}, {f"{name}_bench": jumbo_launches}
+
+    name, batch, steps = BENCH_DP_RUN
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_CONFIG=name, BENCH_BATCH=str(batch), BENCH_STEPS=str(steps),
+               BENCH_DP="2")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "tools", "bench_torch.py")],
+                          env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    label = f"[18] {name} B={batch} BENCH_DP=2"
+    if proc.returncode != 0:
+        raise SystemExit(f"{label}: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    check_bench_lines(label, lines, f"selfplay_env_steps_per_s_{name}_200sims_dp2", steps)
+    (note,) = [x for x in proc.stderr.splitlines() if x.startswith(bench.LAUNCHES_PREFIX)]
+    by_rank = json.loads(note[len(bench.LAUNCHES_PREFIX):])
+    loop_len = bench.resolve(name).loop_len
+    if by_rank != [[[loop_len, 2 * loop_len]] * steps] * 2:
+        raise SystemExit(f"{label} launches a timed move by rank {by_rank}, expected "
+                         f"{loop_len} and {2 * loop_len}")
+    launches[f"{name}_bench_dp2"] = tuple(
+        sum(move[k] for rank in by_rank for move in rank) for k in (0, 1))
+    (dp_note,) = [x for x in proc.stderr.splitlines() if x.startswith("# dp=")]
+    out["dp2"] = {"config": name, "batch": batch, "steps": steps,
+                  "env_steps_per_s": lines[-1]["value"], "wall_s": wall}
+    print(f"{label} (tools/bench_torch.py) on {card}: {lines[-1]['value']} env-steps/s over "
+          f"{steps} timed moves; {dp_note[2:]}; {loop_len} K1 and {2 * loop_len} K2 "
+          f"launches a move in each rank; {wall:.1f} s", flush=True)
+    print("[18] " + json.dumps(out), flush=True)
+    return out, launches
+
+
 def jumbo_entry(jumbo, kernel, which) -> dict:
     """A kernel's ``go19_jumbo_b2048_*`` keys of the JSON line, from [14]."""
     times = jumbo[kernel]
@@ -2095,7 +2167,6 @@ def main() -> None:
     from alpha_zero_tpu_torch.ops import _build, scatter_kernels, tree_kernels
     from alpha_zero_tpu_torch.search import mcts
     from alpha_zero_tpu_torch.tools import dma_probe, select_bench
-    from alpha_zero_tpu_torch.training import selfplay
     from alpha_zero_tpu_torch.training.pipeline import build_engine
     from alpha_zero_tpu_torch.utils.device import card_line, time_ms
 
@@ -2213,22 +2284,10 @@ def main() -> None:
           f"(5x5, 16 sims, child_N exact), f32 net (max err {net_err:.2e})", flush=True)
 
     lap("[1]-[4]")
-    # --- 5. The main path: go9 self-play moves.
+    # --- 5. The main path: go9 self-play through the bench.
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
-    select.launches = writer.launches = 0
-    rate, _, move_kernels = play_moves("[5] go9", cfg, engine, net, 1 + TIMED_MOVES, dev,
-                                       profiled=True)
-    launches = {"go9_selfplay": (select.launches, writer.launches)}
-    loop_len = cfg.search.max_new_sims
-    print(f"[5] go9 self-play B={BATCH} 200 sims reuse max_new_sims={loop_len}: "
-          f"{rate:.1f} env-steps/s ({BATCH / rate:.3f} s/move over {TIMED_MOVES} "
-          f"moves after 1 warm-up) on {card}; {select.launches} select launches "
-          f"({loop_len}/move), {writer.launches} tree-row writer launches "
-          f"({2 * loop_len}/move); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"[5] one more go9 move under torch.profiler: {move_kernels} device kernel "
-          f"launches (kernels, copies and memsets; {loop_len} K1 and {2 * loop_len} K2 "
-          f"among them)", flush=True)
+    _, _, go9_launches = bench_run("[5] go9", card, "go9", BATCH, TIMED_MOVES, dev)
+    launches = {"go9_selfplay": go9_launches}
 
     lap("[5]")
     # --- 6. K2/K3 (row scatter) against their plain version, then the probe.
@@ -2354,19 +2413,11 @@ def main() -> None:
     # --- 7. gomoku13 self-play: K1 and K2 at T=381, A=169 on a real search.
     g_cfg = config_lib.gomoku13()
     g_engine = build_engine(g_cfg.env)
-    g_net = build_network(g_cfg.env, g_cfg.network, device=dev, seed=0)
-    select.launches = writer.launches = 0
-    g_rate, g_sp, _ = play_moves("[7] gomoku13", g_cfg, g_engine, g_net, 1 + GOMOKU_TIMED_MOVES,
-                              dev)
-    launches["gomoku13_selfplay"] = (select.launches, writer.launches)
-    g_loop = g_cfg.search.max_new_sims
-    print(f"[7] gomoku13 self-play B={BATCH} 380 sims reuse max_new_sims={g_loop} "
-          f"(10 x 40 net, bf16, padding-3 stem): {g_rate:.1f} env-steps/s "
-          f"({BATCH / g_rate:.3f} s/move over {GOMOKU_TIMED_MOVES} moves after 1 "
-          f"warm-up) on {card}; {select.launches} select launches ({g_loop}/move), "
-          f"{writer.launches} tree-row writer launches ({2 * g_loop}/move)", flush=True)
-    check_tree("gomoku13 searched tree (int16 2-byte labels/liberties rows)", g_sp.trees)
-    del g_sp
+    result, _, launches["gomoku13_selfplay"] = bench_run(
+        "[7] gomoku13", card, "gomoku13", BATCH, GOMOKU_TIMED_MOVES, dev)
+    check_tree("gomoku13 searched tree (int16 2-byte labels/liberties rows)",
+               result.state.trees)
+    del result
     check_engine_on_card("[7]", g_engine, 64, dev)
 
     lap("[7]")
@@ -2426,6 +2477,11 @@ def main() -> None:
     select.launches = writer.launches = 0
     _, launches["go9_visits"] = visits_path(card, dev)
     lap("[17]")
+
+    # --- 18. The self-play bench at go19_jumbo, and its CLI at dp=2.
+    _, bench_launches = bench_path(card, dev)
+    launches.update(bench_launches)
+    lap("[18]")
     print(f"chip_smoke: seconds by phase {json.dumps(laps)}; {time.time() - t_start:.1f} s "
           "in all", flush=True)
 

@@ -580,3 +580,27 @@ def test_trainer_runs_on_the_card(cuda_device, tmp_path):
         for name, value in snap.net.state_dict().items():
             assert torch.equal(value, restored.net.state_dict()[name]), name
         assert restored.scheduler.state_dict() == snap.scheduler.state_dict()
+
+
+def test_bench_on_the_card(cuda_device, monkeypatch):
+    """A micro run of the self-play bench (``tools/bench.py``) on the card:
+    ``max_new_sims`` K1 and twice as many K2 launches in every timed move,
+    the lines of ``bench.py``, the peak memory, a legal last move."""
+    from alpha_zero_tpu_torch.tools import bench
+
+    cfg = config_lib.go9()
+    cfg = dataclasses.replace(
+        cfg, env=dataclasses.replace(cfg.env, board_size=5),
+        network=dataclasses.replace(cfg.network, num_res_blocks=1, num_filters=16,
+                                    num_fc_units=16, inference_dtype="float32"),
+        search=dataclasses.replace(cfg.search, num_simulations=16, max_new_sims=8))
+    monkeypatch.setattr(config_lib, "get_config", lambda name: cfg)
+    result = bench.run("go9", batch=8, steps=3, device=cuda_device)
+    assert result.launches == [[(8, 16)] * 3]
+    assert [x.get("partial") for x in result.lines] == [True, True, None]
+    assert result.lines[-1]["metric"] == "selfplay_env_steps_per_s_9x9go_200sims"
+    assert result.lines[-1]["value"] > 0 and result.peak_bytes[0] > 0
+    last = result.last
+    torch.testing.assert_close(last.search_pi.sum(-1), torch.ones(8))
+    assert bool((last.root_visits <= 16).all())
+    assert bool(result.last_legal.gather(1, last.move.long()[:, None]).all())

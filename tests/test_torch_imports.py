@@ -23,7 +23,8 @@ def _port_files():
                                          REPO / "tools" / "select_bench_torch.py",
                                          REPO / "tools" / "device_parity_torch.py",
                                          REPO / "tools" / "visits_hist_torch.py",
-                                         REPO / "tools" / "backfill_eval_torch.py"]
+                                         REPO / "tools" / "backfill_eval_torch.py",
+                                         REPO / "tools" / "bench_torch.py"]
 
 
 def _port_modules():
@@ -191,3 +192,23 @@ def test_repo_tools_default_to_cuda(tmp_path, monkeypatch):
         proc = subprocess.run([sys.executable, str(REPO / "tools" / tool)] + args,
                               cwd=tmp_path, capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, tool
+
+
+def test_bench_defaults_to_cuda(tmp_path, monkeypatch):
+    """The self-play bench runs on ``cuda`` unless ``BENCH_DEVICE`` asks for
+    the CPU, through ``run``, ``main`` and the CLI, with ranks or without."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from alpha_zero_tpu_torch.tools import bench
+
+    for name in ("BENCH_DEVICE", "BENCH_DP", "BENCH_CONFIG"):
+        monkeypatch.delenv(name, raising=False)
+    for call in (lambda: bench.run("go9", batch=2, steps=1),
+                 lambda: bench.run("go9", batch=2, steps=1, dp=2), bench.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, str(REPO / "tools" / "bench_torch.py")],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
+    assert proc.stdout == ""

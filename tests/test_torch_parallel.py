@@ -2,6 +2,8 @@
 CPU: ranks are processes on one host joined by gloo, each spawned with a
 timeout (``tests/torch_dp_ranks.py``), so a hang fails one test.
 
+- ``spawn_and_collect``: records in rank order, one larger than a pipe's
+  buffer, a failing rank raising.
 - The collectives: ``global_sum``, ``global_game_count``,
   ``broadcast_from_host0``, ``broadcast_tensors``, the differentiable
   ``all_reduce_sum`` and ``average_gradients``, at 2 and 3 ranks; the rank
@@ -53,6 +55,22 @@ G = 16           # the global batch; each of the 2 ranks steps on 8 rows
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nbytes", [16, 4 << 20])
+def test_spawn_and_collect_returns_records_by_rank(nbytes):
+    """``multihost.spawn_and_collect`` returns each rank's record in rank
+    order, also when a record outgrows a pipe's buffer (64 KiB), so that
+    its ``put`` waits for the reader before the rank can end."""
+    records = multihost.spawn_and_collect(torch_dp_ranks.put_record, 3, (nbytes, -1))
+    assert [r["rank"] for r in records] == [0, 1, 2]
+    for r in records:
+        assert r["payload"].shape == (nbytes,) and (r["payload"] == r["rank"]).all()
+
+
+def test_spawn_and_collect_raises_when_a_rank_fails():
+    with pytest.raises(torch.multiprocessing.ProcessRaisedException, match="rank 1 fails"):
+        multihost.spawn_and_collect(torch_dp_ranks.put_record, 2, (16, 1))
 
 
 @pytest.mark.parametrize("world", [2, 3])

@@ -52,6 +52,15 @@ def spawn_ranks(target, world: int, *args) -> None:
                 p.join(10)
 
 
+def put_record(rank: int, nbytes: int, fail_rank: int, results) -> None:
+    """A rank of ``multihost.spawn_and_collect``: puts ``{"rank",
+    "payload"}`` with ``nbytes`` bytes of its rank on ``results``; rank
+    ``fail_rank`` raises instead."""
+    if rank == fail_rank:
+        raise RuntimeError(f"rank {rank} fails")
+    results.put({"rank": rank, "payload": np.full(nbytes, rank, dtype=np.uint8)})
+
+
 def collectives(rank: int, world: int, address: str, out_dir: str) -> None:
     """Every collective of ``parallel.multihost`` once, with rank-dependent
     inputs; the results go to ``out_dir/rank{r}.json``."""

@@ -1,14 +1,16 @@
 """Where one self-play move of the PyTorch port spends its time.
 
-    python3 tools/profile_torch_selfplay.py [--config go9] [--moves 3] [--rate-only]
+    python3 tools/profile_torch_selfplay.py [--config go9] [--moves 3]
 
 Runs the port's self-play step for a named config at its
 ``parallel.selfplay_batch_size`` games (default go9: B=1024, bf16 net with
 random weights, 200 simulations, reuse, max_new_sims=120; gomoku13: 380
 simulations, max_new_sims=240; go19_jumbo: B=2048, 800 simulations,
 max_new_sims=480) on the GPU: one warm-up move,
-``--moves`` timed moves without the profiler (their mean gives env-steps/s),
-then one move under ``torch.profiler`` (skipped with ``--rate-only``).
+``--moves`` timed moves without the profiler (their mean is the move the
+device-busy share is taken against), then one move under
+``torch.profiler``. The port's env-steps/s is the self-play bench's,
+``tools/bench_torch.py``.
 The search's phases are wrapped in ``record_function`` ranges by this script
 (the port itself carries no instrumentation), so the table gives, per phase,
 the host time inside its calls and the span its work covers on the device
@@ -90,7 +92,6 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default="go9", choices=sorted(config_lib.CONFIGS))
     p.add_argument("--moves", type=int, default=3, help="timed moves without the profiler")
-    p.add_argument("--rate-only", action="store_true", help="no profiled move")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_selfplay: CUDA is not available")
@@ -120,10 +121,8 @@ def main(argv=None) -> None:
     times = [move() for _ in range(args.moves)]
     plain_s = sum(times) / len(times)
     print(f"card: {card}; {args.config}, batch {batch}; moves without profiler "
-          + ", ".join(f"{x:.3f}" for x in times) + f" s: mean {plain_s:.3f} s, "
-          f"{batch / plain_s:.1f} env-steps/s", flush=True)
-    if args.rate_only:
-        return
+          + ", ".join(f"{x:.3f}" for x in times) + f" s: mean {plain_s:.3f} s",
+          flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_s = move()
     events = prof.key_averages()
