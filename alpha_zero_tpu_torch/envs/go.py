@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from alpha_zero_tpu_torch.envs.types import BLACK, EMPTY, RESIGN, WHITE, GameState
+from alpha_zero_tpu_torch.utils import trace
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
 # 4-connectivity neighborhood.
@@ -139,7 +140,10 @@ class GoEngine:
             labels = self._label_sweep(labels, same_mask, active)
         for _ in range(sent):
             new = self._label_sweep(labels, same_mask, active)
-            if torch.equal(new, labels):
+            with trace.span("sync.label_equal"):
+                settled = torch.equal(new, labels)
+            trace.count("sync.label_equal")
+            if settled:
                 break
             labels = new
         return labels
@@ -303,11 +307,14 @@ class GoEngine:
 
         # Bookkeeping.
         pass_streak = torch.where(is_pass, state.pass_streak + 1, 0)
+        # Each table is a host-to-device copy from pageable memory, which
+        # waits for the stream: a sync.
+        with trace.span("sync.capture_table"):
+            black_caps = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+            white_caps = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+        trace.count("sync.capture_table", 2)
         caps_add = torch.where(
-            (color == BLACK)[:, None],
-            torch.tensor([1, 0], dtype=torch.int32, device=dev),
-            torch.tensor([0, 1], dtype=torch.int32, device=dev),
-        ) * num_captured[:, None]
+            (color == BLACK)[:, None], black_caps, white_caps) * num_captured[:, None]
         step_count = state.step_count + 1
         history = torch.cat([new_board[:, None], state.history[:, :-1]], dim=1)
 
@@ -356,22 +363,28 @@ class GoEngine:
 
     def _finalize_scores(self, was_done: torch.Tensor, stepped: GameState) -> GameState:
         """Fills winner/reward/final_score for games that just ended by
-        double pass or max_steps (resign is already settled). Scores only
-        when some game needs it."""
+        double pass or max_steps (resign is already settled). Scores the
+        whole batch when some game needs it."""
         needs = stepped.done & ~stepped.resigned & ~was_done
-        if not bool(needs.any()):
+        with trace.span("sync.needs"):
+            scored = int(needs.sum())
+        trace.count("sync.needs")
+        if not scored:
             return stepped
-        scores = self.score(stepped.board)
-        score_winner = torch.where(
-            scores > 0, 1, torch.where(scores < 0, -1, 0)).to(torch.int8)
-        mover = -stepped.to_play  # the player who made the move
-        reward = torch.where(score_winner != 0,
-                             torch.where(score_winner == mover, 1.0, -1.0), 0.0)
-        return stepped.replace(
-            winner=torch.where(needs, score_winner, stepped.winner),
-            last_reward=torch.where(needs, reward, stepped.last_reward),
-            final_score=torch.where(needs, scores, stepped.final_score),
-        )
+        trace.count("go.scored_games", scored)
+        trace.count("go.scored_boards", needs.shape[0])
+        with trace.span("go.score"):
+            scores = self.score(stepped.board)
+            score_winner = torch.where(
+                scores > 0, 1, torch.where(scores < 0, -1, 0)).to(torch.int8)
+            mover = -stepped.to_play  # the player who made the move
+            reward = torch.where(score_winner != 0,
+                                 torch.where(score_winner == mover, 1.0, -1.0), 0.0)
+            return stepped.replace(
+                winner=torch.where(needs, score_winner, stepped.winner),
+                last_reward=torch.where(needs, reward, stepped.last_reward),
+                final_score=torch.where(needs, scores, stepped.final_score),
+            )
 
     def step_batch(self, states: GameState, actions: torch.Tensor) -> GameState:
         """Batched step with terminal scoring — the hot-path entry point."""

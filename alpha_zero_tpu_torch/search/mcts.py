@@ -33,6 +33,7 @@ import torch
 
 from alpha_zero_tpu_torch.envs.types import GameState, TensorStruct
 from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+from alpha_zero_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -448,7 +449,8 @@ def batched_search(
     num_actions = engine.num_actions
     batch = root_states.board.shape[0]
 
-    prior0, value0 = eval_fn(engine.observation(root_states))
+    with trace.span("search.root_eval"):
+        prior0, value0 = eval_fn(engine.observation(root_states))
     # Tree nodes hold 1-deep history (their board); observation stacks are
     # rebuilt from ancestor boards and the root's pre-search history.
     tree_engine = engine.with_num_stack(1)
@@ -462,45 +464,65 @@ def batched_search(
         _add_dirichlet_noise(trees, dirichlet_noise, dirichlet_eps)
 
     loop_len = num_simulations - 1 if max_new_sims is None else max_new_sims
-    for _ in range(loop_len):
-        active = trees.node_N[:, 0] < float(num_simulations)
-        slot = trees.num_nodes.long()
-        parent, action, child, hit_term, even, odd, depth, p_sel = (
-            tree_kernels.select_leaf_batched(
-                trees.node_N, trees.node_W, trees.node_P, trees.parent_index,
-                trees.action_from_parent, trees.node_done, trees.child_P,
-                path_cap=path_cap, c_puct_base=c_puct_base,
-                c_puct_init=c_puct_init))
-        parent_states = _game_state_of(
-            _gather_state_rows(trees.states, parent), num_actions)
-        new_states = tree_engine.step_batch(parent_states, action)
-        trees, leaf, needs_eval = _materialize_scatter(
-            trees, slot, parent, action, child, hit_term, active,
-            _node_state_of(new_states), new_states.done, new_states.last_reward,
-            p_sel)
-        history = _leaf_history_batch(trees, parent, depth, new_states.board,
-                                      num_stack)
-        prior, value = eval_fn(engine.observation_from(history, new_states.to_play))
-        # Keep the -1 illegal sentinel in the stored prior (Tree.child_P).
-        prior_sel = torch.where(new_states.legal > 0.5, prior, -1.0)
-        _expand_backup_scatter(trees, slot, leaf, needs_eval, active, even, odd,
-                               depth, prior_sel, value)
+    search_index = trace.count("search.calls")
+    if search_index is not None:
+        # Every active simulation adds one root visit, so a lane is active
+        # in simulation i iff its root started below num_simulations - i:
+        # the loop's active lanes a simulation, from one reduction.
+        left = float(num_simulations) - trees.node_N[:, 0]
+        sims = torch.arange(loop_len, device=left.device, dtype=left.dtype)
+        active_by_sim = (left[None, :] > sims[:, None]).sum(dim=1)
+    for i in range(loop_len):
+        with trace.span("search.sim", search_index, i):
+            if search_index is not None:
+                trace.count("search.lane_sims", batch)
+                trace.count("search.active_lane_sims", active_by_sim[i])
+            active = trees.node_N[:, 0] < float(num_simulations)
+            with trace.span("search.select"):
+                slot = trees.num_nodes.long()
+                parent, action, child, hit_term, even, odd, depth, p_sel = (
+                    tree_kernels.select_leaf_batched(
+                        trees.node_N, trees.node_W, trees.node_P, trees.parent_index,
+                        trees.action_from_parent, trees.node_done, trees.child_P,
+                        path_cap=path_cap, c_puct_base=c_puct_base,
+                        c_puct_init=c_puct_init))
+            with trace.span("search.gather"):
+                parent_states = _game_state_of(
+                    _gather_state_rows(trees.states, parent), num_actions)
+            with trace.span("go.step"):
+                new_states = tree_engine.step_batch(parent_states, action)
+            with trace.span("search.materialize"):
+                trees, leaf, needs_eval = _materialize_scatter(
+                    trees, slot, parent, action, child, hit_term, active,
+                    _node_state_of(new_states), new_states.done, new_states.last_reward,
+                    p_sel)
+            with trace.span("search.history"):
+                history = _leaf_history_batch(trees, parent, depth, new_states.board,
+                                              num_stack)
+            prior, value = eval_fn(engine.observation_from(history, new_states.to_play))
+            with trace.span("search.expand_backup"):
+                # Keep the -1 illegal sentinel in the stored prior (Tree.child_P).
+                prior_sel = torch.where(new_states.legal > 0.5, prior, -1.0)
+                _expand_backup_scatter(trees, slot, leaf, needs_eval, active, even, odd,
+                                       depth, prior_sel, value)
 
-    # Root child stats: each root child's N/W added at its action (one node
-    # per action, so the sums are exact); other nodes go to a dump column.
-    at = torch.where(trees.parent_index == 0.0, trees.action_from_parent,
-                     float(num_actions)).long()
+    with trace.span("search.root_stats"):
+        # Root child stats: each root child's N/W added at its action (one
+        # node per action, so the sums are exact); other nodes go to a dump
+        # column.
+        at = torch.where(trees.parent_index == 0.0, trees.action_from_parent,
+                         float(num_actions)).long()
 
-    def by_action(x: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros((batch, num_actions + 1), device=x.device)
-        return out.scatter_add_(1, at, x)[:, :num_actions]
+        def by_action(x: torch.Tensor) -> torch.Tensor:
+            out = torch.zeros((batch, num_actions + 1), device=x.device)
+            return out.scatter_add_(1, at, x)[:, :num_actions]
 
-    result = SearchResult(
-        child_N=by_action(trees.node_N),
-        child_W=by_action(trees.node_W),
-        root_Q=trees.node_W[:, 0] / torch.clamp_min(trees.node_N[:, 0], 1.0),
-        legal=trees.root_legal,
-    )
+        result = SearchResult(
+            child_N=by_action(trees.node_N),
+            child_W=by_action(trees.node_W),
+            root_Q=trees.node_W[:, 0] / torch.clamp_min(trees.node_N[:, 0], 1.0),
+            legal=trees.root_legal,
+        )
     if return_trees:
         return result, trees
     return result

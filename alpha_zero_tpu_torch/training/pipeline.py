@@ -50,7 +50,7 @@ checkpoints (in the whole layout, gathered over model group 0) and the
 evaluator's rows; every rank refreshes its self-play net, slice by slice.
 
 ``Trainer.profile`` traces a few self-play steps and one train step with
-``torch.profiler`` into a Chrome trace.
+``torch.profiler`` and the program's own spans into one Chrome trace.
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ from alpha_zero_tpu_torch.training import learner as learner_lib
 from alpha_zero_tpu_torch.training import selfplay as selfplay_lib
 from alpha_zero_tpu_torch.training.replay import UniformReplay
 from alpha_zero_tpu_torch.utils import sgf as sgf_lib
+from alpha_zero_tpu_torch.utils import trace
 from alpha_zero_tpu_torch.utils.csv_writer import CsvWriter
 from alpha_zero_tpu_torch.utils.device import resolve_device
 from alpha_zero_tpu_torch.utils.logging import Timer, create_logger, get_time_stamp
@@ -614,28 +615,34 @@ class Trainer:
     def profile(self, num_steps: int = 3, out_dir: Optional[str] = None) -> str:
         """Traces ``num_steps`` self-play steps (harvest included) and one
         train step with ``torch.profiler`` (CPU activities, and CUDA's on
-        the card) under ``record_function`` ranges ``selfplay`` and
-        ``train_step``; writes a Chrome trace ``trace_rank{r}.json`` to
-        ``out_dir`` (default ``logs_dir/profile``) and returns its path.
+        the card) and the program's own spans (``utils/trace.py``), under
+        spans ``selfplay`` and ``train_step``; writes a Chrome trace
+        ``trace_rank{r}.json`` holding both to ``out_dir`` (default
+        ``logs_dir/profile``) and returns its path.
         Data or model parallel, every rank calls it together (fences,
         gathers, train step)."""
-        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.profiler import ProfilerActivity, profile
 
         out_dir = out_dir or os.path.join(self.cfg.run.logs_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            with record_function("selfplay"):
-                self.selfplay_until(math.inf, max_steps=num_steps)
-            with record_function("train_step"):
-                if self._train_once() is None:
-                    self.logger.warning("replay too small to sample; no train step traced")
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        trace.enable()
+        try:
+            with profile(activities=activities) as prof:
+                with trace.span("selfplay"):
+                    self.selfplay_until(math.inf, max_steps=num_steps)
+                with trace.span("train_step"):
+                    if self._train_once() is None:
+                        self.logger.warning("replay too small to sample; no train step traced")
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        finally:
+            record = trace.disable()
         path = os.path.join(out_dir, f"trace_rank{self.rank}.json")
         prof.export_chrome_trace(path)
+        trace.merge_into_chrome_trace(record, path)
         self.logger.info(f"profiler trace written to {path}")
         return path
 

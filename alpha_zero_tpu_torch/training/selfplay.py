@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from alpha_zero_tpu_torch.envs.types import RESIGN, GameState
 from alpha_zero_tpu_torch.search import mcts
+from alpha_zero_tpu_torch.utils import trace
 from alpha_zero_tpu_torch.utils.device import resolve_device
 from alpha_zero_tpu_torch.utils.results import result_string
 
@@ -118,9 +119,9 @@ def make_eval_fn(net) -> Callable:
     in float32 [B, A], value [B])."""
 
     def eval_fn(obs: torch.Tensor):
-        with torch.no_grad():
+        with trace.span("net"), torch.no_grad():
             out = net(obs)
-        return F.softmax(out.pi_logits.float(), dim=-1), out.value
+            return F.softmax(out.pi_logits.float(), dim=-1), out.value
 
     return eval_fn
 
@@ -161,6 +162,10 @@ def make_selfplay_step(engine, net, search_cfg, resign_cfg,
     def selfplay_step(sp: SelfplayState, generator: Optional[torch.Generator] = None,
                       resign_threshold: float = -1.0,
                       noise: Optional[SelfplayNoise] = None):
+        with trace.span("selfplay.step"):
+            return step(sp, generator, resign_threshold, noise)
+
+    def step(sp, generator, resign_threshold, noise):
         games = sp.games
         batch = games.done.shape[0]
         if noise is None:
@@ -185,25 +190,27 @@ def make_selfplay_step(engine, net, search_cfg, resign_cfg,
         )
         result, trees = search_out if reuse else (search_out, None)
 
-        warm_up = games.step_count <= warm_up_steps
-        search_pi = mcts.policy_from_counts(
-            result.child_N, result.legal, warm_up,
-            warm_up_temperature=warm_temp, temperature=final_temp)
-        move = mcts.sample_move(noise.gumbel, search_pi, result.legal,
-                                result.child_N, warm_up, pass_move=pass_move,
-                                deterministic=deterministic)
-        best_q = mcts.best_child_q(result.child_N, result.child_W, move)
+        with trace.span("selfplay.policy_sample"):
+            warm_up = games.step_count <= warm_up_steps
+            search_pi = mcts.policy_from_counts(
+                result.child_N, result.legal, warm_up,
+                warm_up_temperature=warm_temp, temperature=final_temp)
+            move = mcts.sample_move(noise.gumbel, search_pi, result.legal,
+                                    result.child_N, warm_up, pass_move=pass_move,
+                                    deterministic=deterministic)
+            best_q = mcts.best_child_q(result.child_N, result.child_W, move)
 
-        marked = sp.marked_resign_player
-        if has_resign and resign_threshold > -1.0:
-            signal = ((games.step_count > check_after)
-                      & (result.root_Q < resign_threshold)
-                      & (best_q < resign_threshold))
-            newly_marked = signal & (marked == 0)
-            marked = torch.where(newly_marked, games.to_play, marked)
-            move = torch.where(signal & ~sp.resign_disabled, RESIGN, move)
+            marked = sp.marked_resign_player
+            if has_resign and resign_threshold > -1.0:
+                signal = ((games.step_count > check_after)
+                          & (result.root_Q < resign_threshold)
+                          & (best_q < resign_threshold))
+                newly_marked = signal & (marked == 0)
+                marked = torch.where(newly_marked, games.to_play, marked)
+                move = torch.where(signal & ~sp.resign_disabled, RESIGN, move)
 
-        stepped = engine.step_batch(games, move)
+        with trace.span("go.step"):
+            stepped = engine.step_batch(games, move)
         done = stepped.done
 
         # Bit-pack the binary observation planes (plane c -> bit c).
@@ -228,17 +235,19 @@ def make_selfplay_step(engine, net, search_cfg, resign_cfg,
             marked_resign_player=marked,
         )
 
-        # Auto-reset finished slots; redraw their resign-disabled flags.
-        fresh = engine.init_batch(batch, device=dev)
-        new_games = fresh.map2(stepped, lambda f, s: torch.where(
-            done.reshape((batch,) + (1,) * (s.dim() - 1)), f, s))
-        new_disabled = _sample_resign_disabled(
-            noise.resign_u, has_resign, resign_threshold, disable_ratio)
+        with trace.span("selfplay.reset"):
+            # Auto-reset finished slots; redraw their resign-disabled flags.
+            fresh = engine.init_batch(batch, device=dev)
+            new_games = fresh.map2(stepped, lambda f, s: torch.where(
+                done.reshape((batch,) + (1,) * (s.dim() - 1)), f, s))
+            new_disabled = _sample_resign_disabled(
+                noise.resign_u, has_resign, resign_threshold, disable_ratio)
         new_trees = None
         if reuse:
-            # The chosen child's subtree becomes the next root; finished
-            # (auto-reset) games get fresh trees.
-            new_trees = mcts.reroot_trees(trees, move, done, new_games, num_actions)
+            with trace.span("search.reroot"):
+                # The chosen child's subtree becomes the next root; finished
+                # (auto-reset) games get fresh trees.
+                new_trees = mcts.reroot_trees(trees, move, done, new_games, num_actions)
         new_sp = SelfplayState(
             games=new_games,
             resign_disabled=torch.where(done, new_disabled, sp.resign_disabled),

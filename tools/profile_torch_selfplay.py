@@ -9,25 +9,25 @@ simulations, max_new_sims=240; go19_jumbo: B=2048, 800 simulations,
 max_new_sims=480) on the GPU: one warm-up move,
 ``--moves`` timed moves without the profiler (their mean is the move the
 device-busy share is taken against), then one move under
-``torch.profiler``. The port's env-steps/s is the self-play bench's,
-``tools/bench_torch.py``.
-The search's phases are wrapped in ``record_function`` ranges by this script
-(the port itself carries no instrumentation), so the table gives, per phase,
-the host time inside its calls and the span its work covers on the device
-(idle gaps included). Prints the card, the move times, the device-busy share
-and kernel launches of the profiled move, the phase table (with the
-kernel launches each phase makes, counted from the ``cudaLaunchKernel``
-and ``cuLaunchKernel`` calls under its range), the top kernels, and the
-own rows of K1 (select) and K2 (the tree-row writer): launches and device
-time per launch in the move. Last, it profiles 20 select calls on the
-trees the move left and prints every device kernel of one call. Needs a
-CUDA device.
+``torch.profiler`` with the program's own spans on
+(``alpha_zero_tpu_torch/utils/trace.py``). The port's env-steps/s is the
+self-play bench's, ``tools/bench_torch.py``.
+The phase table reads the program's spans: for each span name, its calls,
+its host self time (the spans' time less their child spans'), the kernel
+launches it made (the runtime's ``cudaLaunchKernel`` and ``cuLaunchKernel``
+calls whose start falls inside it and inside none of its children) and the
+device time of the kernels so launched. Prints the card, the move times,
+the device-busy share and kernel launches of the profiled move, the phase
+table, the top kernels, and the own rows of K1 (select) and K2 (the
+tree-row writer): launches and device time per launch in the move. Last,
+it profiles 20 select calls on the trees the move left and prints every
+device kernel of one call. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
+import bisect
 import os
 import sys
 import time
@@ -35,57 +35,63 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from alpha_zero_tpu_torch import config as config_lib  # noqa: E402
 from alpha_zero_tpu_torch.models.resnet import build_network  # noqa: E402
 from alpha_zero_tpu_torch.ops import tree_kernels  # noqa: E402
-from alpha_zero_tpu_torch.search import mcts  # noqa: E402
 from alpha_zero_tpu_torch.tools import select_bench  # noqa: E402
 from alpha_zero_tpu_torch.training import selfplay  # noqa: E402
 from alpha_zero_tpu_torch.training.pipeline import build_engine  # noqa: E402
+from alpha_zero_tpu_torch.utils import trace  # noqa: E402
 from alpha_zero_tpu_torch.utils.device import card_line, device_kernels  # noqa: E402
 
 KERNELS = {"K1": "select_leaf_kernel", "K2": "write_rows_kernel"}  # names in the trace
-PHASES = ("select", "gather_state", "engine_step", "materialize", "history",
-          "net", "expand_backup", "reroot")
 
 
-def _ranged(name, fn):
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return wrapper
+def _innermost(spans):
+    """``at(t)``: the index of the innermost span open at ``t`` (-1 for
+    none). Spans nest, so it is the latest-started span before ``t`` or one
+    of its ancestors."""
+    order = sorted(range(len(spans)), key=lambda i: (spans[i].start_ns, -spans[i].end_ns))
+    starts = [spans[i].start_ns for i in order]
+
+    def at(t: int) -> int:
+        j = bisect.bisect_right(starts, t) - 1
+        i = order[j] if j >= 0 else -1
+        while i >= 0 and spans[i].end_ns < t:
+            i = spans[i].parent
+        return i
+
+    return at
 
 
-def _instrument(engine_cls) -> None:
-    """Wraps each phase of the search in a named profiler range."""
-    tree_kernels.select_leaf_batched = _ranged("select", tree_kernels.select_leaf_batched)
-    mcts._gather_state_rows = _ranged("gather_state", mcts._gather_state_rows)
-    engine_cls.step_batch = _ranged("engine_step", engine_cls.step_batch)
-    mcts._materialize_scatter = _ranged("materialize", mcts._materialize_scatter)
-    mcts._leaf_history_batch = _ranged("history", mcts._leaf_history_batch)
-    mcts._expand_backup_scatter = _ranged("expand_backup", mcts._expand_backup_scatter)
-    mcts.reroot_trees = _ranged("reroot", mcts.reroot_trees)
-    make_eval_fn = selfplay.make_eval_fn
-    selfplay.make_eval_fn = lambda net: _ranged("net", make_eval_fn(net))
-
-
-def _launches_per_phase(events) -> dict:
-    """``{phase or None: kernel launches}``: every ``cudaLaunchKernel`` or
-    ``cuLaunchKernel`` call (and their variants), under the innermost phase
-    range around it."""
-    counts = {}
+def phase_table(events, record) -> dict:
+    """``{span name or None: [calls, host self ns, launches, device ns]}``
+    of the program's spans over one profiled stretch (None: no span)."""
+    spans = record.spans
+    children = [0] * len(spans)
+    for s in spans:
+        if s.parent >= 0:
+            children[s.parent] += s.end_ns - s.start_ns
+    table = {None: [0, 0, 0, 0]}
+    for i, s in enumerate(spans):
+        row = table.setdefault(s.name, [0, 0, 0, 0])
+        row[0] += 1
+        row[1] += s.end_ns - s.start_ns - children[i]
+    at = _innermost(spans)
+    launched, device = {}, []
     for e in events:
-        if e.device_type != torch.autograd.DeviceType.CPU or "LaunchKernel" not in e.name:
-            continue
-        parent = e.cpu_parent
-        while parent is not None and parent.name not in PHASES:
-            parent = parent.cpu_parent
-        key = None if parent is None else parent.name
-        counts[key] = counts.get(key, 0) + 1
-    return counts
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device.append(e)
+        elif "LaunchKernel" in e.name():
+            i = at(e.start_ns())
+            launched[e.correlation_id()] = i
+            table[spans[i].name if i >= 0 else None][2] += 1
+    for e in device:
+        i = launched.get(e.correlation_id(), -1)
+        table[spans[i].name if i >= 0 else None][3] += e.end_ns() - e.start_ns()
+    return table
 
 
 def main(argv=None) -> None:
@@ -100,7 +106,6 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     cfg = config_lib.get_config(args.config)
     engine = build_engine(cfg.env)
-    _instrument(type(engine))
     net = build_network(cfg.env, cfg.network, device=dev, seed=0)
     step = selfplay.make_selfplay_step(engine, net, cfg.search, cfg.resign, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -123,26 +128,25 @@ def main(argv=None) -> None:
     print(f"card: {card}; {args.config}, batch {batch}; moves without profiler "
           + ", ".join(f"{x:.3f}" for x in times) + f" s: mean {plain_s:.3f} s",
           flush=True)
+    trace.enable()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_s = move()
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in on_device if e.key not in PHASES]
-    spans = {e.key: e for e in on_device if e.key in PHASES}
+    record = trace.disable()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     print(f"profiled move {profiled_s:.3f} s")
     print(f"profiled move: {launches} kernel launches, device busy "
           f"{busy_us / 1e3:.1f} ms = {busy_us / 1e4 / profiled_s:.1f}% of the "
           f"profiled move, {busy_us / 1e4 / plain_s:.1f}% of the move without it")
-    launched = _launches_per_phase(prof.events())
-    print(f"{'phase':<14}{'calls':>7}{'host ms':>10}{'device span ms':>16}{'launches':>10}")
-    host = [e for e in events if e.key in PHASES and e not in on_device]
-    for e in sorted(host, key=lambda e: -e.cpu_time_total):
-        span = spans[e.key].device_time_total / 1e3 if e.key in spans else 0.0
-        print(f"{e.key:<14}{e.count:>7}{e.cpu_time_total / 1e3:>10.1f}{span:>16.1f}"
-              f"{launched.get(e.key, 0):>10}")
-    print(f"launches outside the phases: {launched.get(None, 0)}")
+    table = phase_table(prof.profiler.kineto_results.events(), record)
+    outside = table.pop(None)
+    print(f"{'span':<24}{'calls':>7}{'host self ms':>14}{'launches':>10}{'device ms':>11}")
+    for name, (calls, host_ns, launches, device_ns) in sorted(
+            table.items(), key=lambda kv: -kv[1][1]):
+        print(f"{name:<24}{calls:>7}{host_ns / 1e6:>14.1f}{launches:>10}{device_ns / 1e6:>11.1f}")
+    print(f"outside every span: {outside[2]} launches, {outside[3] / 1e6:.1f} device ms")
     print("top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
@@ -157,9 +161,7 @@ def main(argv=None) -> None:
     kw = dict(path_cap=min(cfg.search.num_simulations + 1, engine.max_steps + 2),
               c_puct_base=cfg.search.c_puct_base, c_puct_init=cfg.search.c_puct_init)
     args = select_bench.select_args(sp.trees)
-    per_call = {name: v for name, v in device_kernels(
-        lambda: tree_kernels.select_leaf_batched(*args, **kw), 20).items()
-        if name not in PHASES}  # not the profiler range around select
+    per_call = device_kernels(lambda: tree_kernels.select_leaf_batched(*args, **kw), 20)
     print(f"device kernels per select call: {sum(n for n, _ in per_call.values()):g}")
     for name, (n, ms) in per_call.items():
         print(f"  x{n:g} {ms * 1e3:8.3f} us  {name[:90]}")
