@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from alpha_zero_tpu_torch.envs.types import BLACK, EMPTY, RESIGN, WHITE, GameState
+from alpha_zero_tpu_torch.ops import score_kernels
 from alpha_zero_tpu_torch.utils import trace
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
@@ -211,10 +212,11 @@ class GoEngine:
     # -----------------------------------------------------------------------
     # Scoring
     # -----------------------------------------------------------------------
-    def area_counts(self, board: torch.Tensor) -> tuple:
+    def area_counts_plain(self, board: torch.Tensor) -> tuple:
         """Per-player Tromp-Taylor areas (black, white), f32[B] each, before
         komi: empty regions bordered only by one color count for it, mixed
-        regions for neither; dead stones are not removed."""
+        regions for neither; dead stones are not removed. The plain version
+        of the scoring kernel (``ops/score_kernels.py``), on any device."""
         sent = self.board_size * self.board_size
         b = board.shape[0]
         empty = board == EMPTY
@@ -239,6 +241,12 @@ class GoEngine:
         white = (board == WHITE).reshape(b, -1).sum(1) + terr_white
         return black.float(), white.float()
 
+    def area_counts(self, board: torch.Tensor) -> tuple:
+        """``area_counts_plain``'s (black, white), from one launch of the
+        scoring kernel for a board on the card."""
+        black, white, _ = score_kernels.score_area(self, board)
+        return black, white
+
     def area_score(self, board: torch.Tensor) -> torch.Tensor:
         """Black-perspective Tromp-Taylor area score before komi, f32[B]."""
         black, white = self.area_counts(board)
@@ -246,7 +254,7 @@ class GoEngine:
 
     def score(self, board: torch.Tensor) -> torch.Tensor:
         """Black-perspective area score with komi, f32[B]."""
-        return self.area_score(board) - self.komi
+        return score_kernels.score_area(self, board)[2]
 
     # -----------------------------------------------------------------------
     # Step
@@ -363,18 +371,25 @@ class GoEngine:
 
     def _finalize_scores(self, was_done: torch.Tensor, stepped: GameState) -> GameState:
         """Fills winner/reward/final_score for games that just ended by
-        double pass or max_steps (resign is already settled). Scores the
-        whole batch when some game needs it."""
+        double pass or max_steps (resign is already settled). On the card,
+        one launch of the scoring kernel scores those lanes and skips the
+        others, and nothing is read back; on the CPU, one host read finds
+        whether any game needs a score, and the whole batch is scored."""
         needs = stepped.done & ~stepped.resigned & ~was_done
-        with trace.span("sync.needs"):
-            scored = int(needs.sum())
-        trace.count("sync.needs")
-        if not scored:
-            return stepped
-        trace.count("go.scored_games", scored)
-        trace.count("go.scored_boards", needs.shape[0])
+        if needs.device.type == "cpu":
+            with trace.span("sync.needs"):
+                scored = int(needs.sum())
+            trace.count("sync.needs")
+            if not scored:
+                return stepped
+            trace.count("go.scored_games", scored)
+            trace.count("go.scored_boards", needs.shape[0])
+        elif trace.count("go.score_launches") is not None:
+            scored = needs.sum()  # a device amount: the lanes the kernel scores
+            trace.count("go.scored_games", scored)
+            trace.count("go.scored_boards", scored)
         with trace.span("go.score"):
-            scores = self.score(stepped.board)
+            scores = score_kernels.score_area(self, stepped.board, needs)[2]
             score_winner = torch.where(
                 scores > 0, 1, torch.where(scores < 0, -1, 0)).to(torch.int8)
             mover = -stepped.to_play  # the player who made the move

@@ -116,6 +116,11 @@ card against its CPU path on small inputs, then drives the port's paths:
   ``step_batch`` on the card and on the CPU, every analysis field after
   every step, at each board of ``SWEEPS`` (go9 and gomoku13 at B=256-4096,
   go19 at B=256-2048); every batch OK, stones captured at go9 and go19.
+  Then K4 (``ops/score_kernels.py:score_area``, terminal scoring) against
+  the plain scoring on the card, at each of ``SCORE_CHECKS``: played
+  positions (``tools/score_boards.py``) and the snake boards, every lane
+  bit-equal with and without a mask; K4's device time (CUDA graph, warm)
+  beside its byte bound and the plain version's time.
 - [16] the backfill evaluator (``tools/backfill_eval.py:backfill``) on
   [8]'s checkpoints with [8]'s config (``eval_games=2``, its pro games and
   dataset cache): the JAX package's header, every column but ``datetime``
@@ -254,6 +259,12 @@ MDL_NET_ATOL = 0.1
 SWEEPS = (("go", 9, (256, 1024, 2048, 4096), 60),
           ("gomoku", 13, (256, 1024, 2048, 4096), 60),
           ("go", 19, (256, 1024, 2048), 60))
+# [15] holds K4 to the plain scoring at the benchmark cells' boards and
+# batches (board, batch, plies of the played positions; the last 6 lanes
+# are the snake boards) and masks a tenth of the lanes in, about what a
+# search step finds ended.
+SCORE_CHECKS = ((9, 4096, 60), (19, 512, 240))
+SCORE_MASKED = 0.1
 # [16]'s metrics-only pass runs the bf16 net over the pro positions in
 # batches of 8192 where [8]'s rows ran 1024: the float32 sums of value error
 # and entropy come in another order (1.6e-6 relative apart on an NVIDIA
@@ -301,21 +312,27 @@ def bench_run(label, card, name, batch, steps, dev) -> tuple:
     lines as ``bench.py`` prints them, ``max_new_sims`` K1 and twice as
     many K2 launches in every move (the warm-up's too) and every timed
     move: legal on the games it was played on, ``search_pi`` rows summing
-    to 1, ``root_visits`` within the budget, finite values.
+    to 1, ``root_visits`` within the budget, finite values. At Go, one K4
+    (terminal scoring) launch an engine step: ``max_new_sims + 1`` a move.
     Returns the result, its numbers and the (K1, K2) launches of the
     run."""
     import torch
 
-    from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+    from alpha_zero_tpu_torch.ops import scatter_kernels, score_kernels, tree_kernels
     from alpha_zero_tpu_torch.tools import bench
 
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
+    scorer = score_kernels.score_area
     b = bench.resolve(name, batch, steps=steps)
-    select.launches = writer.launches = 0
+    select.launches = writer.launches = scorer.launches = 0
     t0 = time.time()
     result = bench.run(name, batch=batch, steps=steps, device=dev)
     wall = time.time() - t0
     launches = (select.launches, writer.launches)
+    k4_per_move = b.loop_len + 1 if b.cfg.env.game == "go" else 0
+    if scorer.launches != (1 + steps) * k4_per_move:
+        raise SystemExit(f"{label} {scorer.launches} K4 launches in the run, expected "
+                         f"{1 + steps} moves of {k4_per_move}")
     check_bench_lines(label, result.lines, b.metric, steps)
     per_move = (b.loop_len, 2 * b.loop_len)
     if result.launches != [[per_move] * steps]:
@@ -341,8 +358,9 @@ def bench_run(label, card, name, batch, steps, dev) -> tuple:
            "partial": values[:-1], "nn_sims_per_s": result.lines[-1]["nn_sims_per_s"],
            "peak_gib": result.peak_bytes[0] / 2**30, "wall_s": wall}
     print(f"{label} bench B={batch} on {card}: {values[-1]} env-steps/s over {steps} timed "
-          f"moves after 1 warm-up (partial {values[:-1]}), {per_move[0]} K1 and "
-          f"{per_move[1]} K2 launches a move, peak {out['peak_gib']:.2f} GiB; {wall:.1f} s",
+          f"moves after 1 warm-up (partial {values[:-1]}), {per_move[0]} K1, "
+          f"{per_move[1]} K2 and {k4_per_move} K4 launches a move, peak "
+          f"{out['peak_gib']:.2f} GiB; {wall:.1f} s",
           flush=True)
     return result, out, launches
 
@@ -1940,6 +1958,48 @@ def sweep_path(card, dev) -> dict:
     return out
 
 
+def score_path(card, dev) -> dict:
+    """[15], then: K4 against the plain scoring (``area_counts_plain``) on
+    the card at each of ``SCORE_CHECKS``, every lane bit-equal with and
+    without a mask, and the times of both. Returns each board's numbers."""
+    import torch
+
+    from alpha_zero_tpu_torch.envs.go import GoEngine
+    from alpha_zero_tpu_torch.ops import score_kernels
+    from alpha_zero_tpu_torch.tools.score_boards import (played_boards, score_mismatches,
+                                                         snake_boards)
+    from alpha_zero_tpu_torch.utils.device import HBM_BYTES_PER_S, graph_ms, time_ms
+
+    out = {}
+    for n, batch, plies in SCORE_CHECKS:
+        t0 = time.time()
+        label = f"go{n} B={batch}"
+        engine = GoEngine(board_size=n)
+        snakes = snake_boards(n).to(dev)
+        boards = torch.cat([played_boards(engine, batch - len(snakes), plies, n, dev), snakes])
+        gen = torch.Generator(device=dev).manual_seed(n)
+        mask = torch.rand(batch, generator=gen, device=dev) < SCORE_MASKED
+        bad = score_mismatches(engine, boards, mask)
+        if any(bad.values()):
+            raise SystemExit(f"[15] K4 {label}: lanes unlike the plain scoring {bad}")
+        scored = int(mask.sum())
+        # Board bytes of the lanes scored, a mask byte a lane, 12 bytes out a lane.
+        bound = {m: (lanes * n * n + extra * batch + 12 * batch) / HBM_BYTES_PER_S * 1e3
+                 for m, lanes, extra in (("all", batch, 0), ("masked", scored, 1))}
+        r = {"batch": batch, "masked_lanes": scored,
+             "ms": graph_ms(lambda: score_kernels.score_area(engine, boards), 50),
+             "masked_ms": graph_ms(lambda: score_kernels.score_area(engine, boards, mask), 50),
+             "bound_ms": bound["all"], "masked_bound_ms": bound["masked"],
+             "plain_ms": time_ms(lambda: engine.area_counts_plain(boards), 3)}
+        print(f"[15] K4 {label} ({len(snakes)} snake boards): bit-equal to the plain "
+              f"scoring on every lane, with and without a mask of {scored} lanes; "
+              f"{r['ms'] * 1e3:.2f} us a call (bound {r['bound_ms'] * 1e3:.3f} us), masked "
+              f"{r['masked_ms'] * 1e3:.2f} us (bound {r['masked_bound_ms'] * 1e3:.3f} us); "
+              f"plain {r['plain_ms']:.2f} ms; {time.time() - t0:.1f} s, on {card}", flush=True)
+        out[f"go{n}"] = r
+    return out
+
+
 def backfill_path(card, dev, cfg, ckpt_dir, train) -> tuple:
     """[16]: ``tools/backfill_eval.py:backfill`` on [8]'s checkpoints with
     [8]'s resolved config (``eval_games=2``, the pro games of
@@ -2465,6 +2525,7 @@ def main() -> None:
 
     # --- 15. The engine parity sweep: go9, gomoku13 and go19 on the card vs the CPU.
     sweep_path(card, dev)
+    score = score_path(card, dev)
     lap("[15]")
 
     # --- 16. The backfill evaluator on [8]'s checkpoints, against [8]'s rows.
@@ -2560,7 +2621,16 @@ def main() -> None:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": None,
-    }] + scatter_entries}))
+    }] + scatter_entries + [{
+        "name": "score_area",
+        "route": "cuda",
+        "source": "alpha_zero_tpu_torch/csrc/score_area.cu",
+        "replaces": None,
+        "max_abs_err": 0.0,
+        **{f"{k}_{name}": v for k, r in score.items() for name, v in r.items()},
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

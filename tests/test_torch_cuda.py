@@ -14,13 +14,16 @@ import torch
 
 from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.models.resnet import build_network
-from alpha_zero_tpu_torch.ops import scatter_kernels, tree_kernels
+from alpha_zero_tpu_torch.envs.go import GoEngine
+from alpha_zero_tpu_torch.ops import score_kernels, scatter_kernels, tree_kernels
 from alpha_zero_tpu_torch.search import mcts
 from alpha_zero_tpu_torch.tools import dma_probe, select_bench
 from alpha_zero_tpu_torch.tools.dma_probe import check_writer, tree_sets
+from alpha_zero_tpu_torch.tools.score_boards import played_boards, score_mismatches, snake_boards
 from alpha_zero_tpu_torch.tools.select_bench import FIELDS, synthetic_trees
 from alpha_zero_tpu_torch.training import selfplay
 from alpha_zero_tpu_torch.training.pipeline import build_engine
+from alpha_zero_tpu_torch.utils import trace
 from alpha_zero_tpu_torch.utils.device import device_kernels
 
 pytestmark = pytest.mark.cuda
@@ -426,6 +429,65 @@ def test_bulk_writer_bit_equal_on_16_byte_rows(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         scatter_kernels.write_rows_bulk([arrays[1][:, :, :1].contiguous()],
                                         [rows[1][:, :1].contiguous()], widx)
+
+
+@pytest.mark.parametrize("n", [9, 19])
+@pytest.mark.parametrize("batch", [1, 512, 4096])
+def test_score_kernel_bit_equal_to_plain(n, batch, cuda_device):
+    """K4 against the plain scoring on the card, with and without a mask,
+    on played positions and the snake boards; one launch a call."""
+    engine = GoEngine(board_size=n)
+    boards = torch.cat([played_boards(engine, batch, 2 * n * n // 3, batch, cuda_device),
+                        snake_boards(n).to(cuda_device)])
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    mask = torch.rand(boards.shape[0], generator=gen, device=cuda_device) < 0.3
+    before = score_kernels.score_area.launches
+    assert score_mismatches(engine, boards, mask) == {"unmasked": 0, "masked": 0}
+    assert score_kernels.score_area.launches == before + 2
+    out = score_kernels.score_area(engine, boards, mask)
+    torch.cuda.synchronize()
+    assert score_kernels.score_area.launches == before + 3
+    assert torch.equal(out[2], torch.where(mask, engine.score(boards.cpu()).to(cuda_device), 0.0))
+
+
+def test_score_kernel_is_one_launch_and_rejects_large_boards(cuda_device):
+    engine = GoEngine(board_size=9)
+    boards = snake_boards(9).to(cuda_device)
+    per_call = device_kernels(lambda: score_kernels.score_area(engine, boards), 5)
+    assert [n for n, _ in per_call.values()] == [1.0], per_call
+    assert "score_area_kernel" in next(iter(per_call))
+    before = score_kernels.score_area.launches
+    with pytest.raises(ValueError, match="1024"):
+        score_kernels.score_area(GoEngine(board_size=33),
+                                 torch.zeros((2, 33, 33), dtype=torch.int8, device=cuda_device))
+    assert score_kernels.score_area.launches == before
+
+
+def test_scoring_on_the_card_is_one_launch_a_step_and_reads_nothing(cuda_device):
+    """A traced self-play move of games capped at 8 plies: every engine
+    step launches K4 once, and no ``sync.needs`` or ``sync.label_equal``
+    is recorded."""
+    cfg = config_lib.go9()
+    engine = build_engine(dataclasses.replace(cfg.env, max_steps=8))
+    _, net, search, resign = _small_setup(9, 16, cuda_device)
+    step = selfplay.make_selfplay_step(engine, net, search, resign, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    sp = selfplay.init_selfplay_state(engine, 8, gen, -1.0, 0.0,
+                                      reuse_num_simulations=16, device=cuda_device)
+    for _ in range(6):
+        sp, _ = step(sp, gen, -1.0)
+    before = score_kernels.score_area.launches
+    trace.enable()
+    step(sp, gen, -1.0)
+    record = trace.disable()
+    steps = sum(1 for s in record.spans if s.name == "go.step")
+    totals = {}
+    for c in record.counts:
+        totals[c.name] = totals.get(c.name, 0) + c.n
+    assert steps == search.max_new_sims + 1
+    assert score_kernels.score_area.launches - before == totals["go.score_launches"] == steps
+    assert "sync.needs" not in totals and "sync.label_equal" not in totals
+    assert totals["go.scored_games"] == totals["go.scored_boards"] > 0
 
 
 # ---------------------------------------------------------------------------
