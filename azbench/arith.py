@@ -1,6 +1,8 @@
 """The yardstick's arithmetic: the card's peaks, and the operations and
 bytes of the work the self-play step asks of the net and of the two tree
-kernels, computed from shapes and from the data of the call.
+kernels, computed from shapes and from the data of the call. A net's
+shapes are its layers, as its reference module's ``net_layers`` lists
+them (``reference/nets/__init__.py``).
 
 Peaks are NVIDIA's data sheet for the H100 SXM (dense, no sparsity, at
 the 700 W limit); each run prints the card's power limit beside them.
@@ -18,38 +20,29 @@ F32_FLOPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def net_layers(cfg: dict) -> Tuple[list, list]:
-    """(convs, denses) of one position's forward pass: convs as (c_in,
-    c_out, kernel, in_side, out_side), denses as (fan_in, fan_out). ``cfg``
-    is a configuration's ``env`` and ``network`` merged."""
-    n, f, fc = cfg["board_size"], cfg["num_filters"], cfg["num_fc_units"]
-    pad = 3 if cfg.get("gomoku", False) else 1
-    side = n + 2 * pad - 2
-    planes = 2 * cfg["num_stack"] + 1
-    convs = [(planes, f, 3, n, side)] + [(f, f, 3, side, side)] * (2 * cfg["num_res_blocks"])
-    convs += [(f, 2, 1, side, side), (f, 1, 1, side, side)]
-    denses = [(2 * side * side, n * n + 1), (side * side, fc), (fc, 1)]
-    return convs, denses
+Layers = Tuple[list, list]
 
 
-def conv_flops(cfg: dict) -> float:
-    """Multiply-add operations (2 each) of the convolutions, one position."""
-    convs, _ = net_layers(cfg)
+def conv_flops(layers: Layers) -> float:
+    """Multiply-add operations (2 each) of the convolutions, one position.
+    ``layers`` is ``net_layers(cfg)`` of the configuration's net module
+    (``reference/nets/<net>.py``)."""
+    convs, _ = layers
     return float(sum(2 * ci * co * k * k * s * s for ci, co, k, _, s in convs))
 
 
-def net_flops(cfg: dict) -> float:
+def net_flops(layers: Layers) -> float:
     """Operations of one position's forward pass: convolutions and dense
     layers (normalisation and activations are not counted)."""
-    _, denses = net_layers(cfg)
-    return conv_flops(cfg) + float(sum(2 * i * o for i, o in denses))
+    _, denses = layers
+    return conv_flops(layers) + float(sum(2 * i * o for i, o in denses))
 
 
-def conv_bytes(cfg: dict, batch: int, elem: int = 2) -> float:
+def conv_bytes(layers: Layers, batch: int, elem: int = 2) -> float:
     """Bytes the convolutions of one batched forward pass must move: each
     layer's input read, kernel read and output written once, ``elem``
     bytes an element (bf16)."""
-    convs, _ = net_layers(cfg)
+    convs, _ = layers
     total = sum(batch * ci * i * i + co * ci * k * k + batch * co * s * s
                 for ci, co, k, i, s in convs)
     return float(total * elem)

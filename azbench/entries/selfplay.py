@@ -2,15 +2,16 @@
 
 One run, in order:
 
-1. Set-up. The program's config is built from the configuration file. The
-   net's weights are drawn on the device from the seed
-   (``reference/net.py:calibrated_weights``) and loaded into the net that
-   ``models/resnet.py:build_network`` builds, in its inference dtype. The
-   games start from the mix's random legal openings, their lengths spread
-   evenly over ``[0, max_steps)``, the same games for every seed and
-   shuffled over the lanes by it, so that the batch holds games at every
-   stage as steady self-play does and games end, are scored and restart
-   inside the window. The step is
+1. Set-up. The program's config is built from the configuration file,
+   and the reference module of the net it names is found
+   (``harness.reference_net``). The net's weights are drawn on the device
+   from the seed (the module's ``calibrated_weights``) and loaded into the
+   net that ``models/resnet.py:build_network`` builds, in its inference
+   dtype. The games start from the mix's random legal openings, their
+   lengths spread evenly over ``[0, max_steps)``, the same games for every
+   seed and shuffled over the lanes by it, so that the batch holds games
+   at every stage as steady self-play does and games end, are scored and
+   restart inside the window. The step is
    ``training/selfplay.py:make_selfplay_step`` over
    ``training/pipeline.py:build_engine``, on a state from
    ``init_selfplay_state`` whose games and trees are those openings. The
@@ -52,7 +53,6 @@ from alpha_zero_tpu_torch.training.pipeline import build_engine
 from azbench import arith, harness
 from azbench import trace as trace_lib
 from azbench.reference import mcts as ref_mcts
-from azbench.reference import net as ref_net
 
 # Kernel names in the device trace.
 K1_KERNEL = "select_leaf_kernel"
@@ -101,18 +101,18 @@ def pack_planes(obs: np.ndarray) -> np.ndarray:
 
 class ControlNet(torch.nn.Module):
     """The comparison's control in the net's place: the reference net one
-    precision below the configured one (``reference/net.py``, fp8)."""
+    precision below the configured one (its module's ``forward``, fp8)."""
 
     class Out(NamedTuple):
         pi_logits: torch.Tensor
         value: torch.Tensor
 
-    def __init__(self, weights: dict, cfg: dict) -> None:
+    def __init__(self, ref_net, weights: dict, cfg: dict) -> None:
         super().__init__()
-        self.weights, self.cfg = weights, cfg
+        self.ref_net, self.weights, self.cfg = ref_net, weights, cfg
 
     def forward(self, obs):
-        return self.Out(*ref_net.forward(self.weights, self.cfg, obs, fp8=True))
+        return self.Out(*self.ref_net.forward(self.weights, self.cfg, obs, fp8=True))
 
 
 class Recorder(torch.nn.Module):
@@ -256,6 +256,7 @@ def run(r: harness.Run) -> harness.Outcome:
     sims = config["search"]["num_simulations"]
     loop_len = config["search"]["max_new_sims"]
     max_steps = config["env"]["max_steps"]
+    ref_net = harness.reference_net(config)
 
     t = time.perf_counter()
     if on_card:
@@ -265,7 +266,7 @@ def run(r: harness.Run) -> harness.Outcome:
     engine = build_engine(cfg.env)
     weights = ref_net.calibrated_weights(ncfg, harness.subseed(r.seed, "weights"), dev)
     if r.control:
-        net = ControlNet(weights, ncfg)
+        net = ControlNet(ref_net, weights, ncfg)
     else:
         net = resnet.build_network(cfg.env, cfg.network, device=dev)
         missing, unexpected = net.load_state_dict(weights, strict=False)
@@ -347,13 +348,14 @@ def run(r: harness.Run) -> harness.Outcome:
     trace = None
     if r.trace:
         unprofiled = [x for i, x in enumerate(times) if i not in plan]
-        trace = _trace_numbers(plan[0], plan[1], ncfg, batch, loop_len, unprofiled)
+        trace = _trace_numbers(plan[0], plan[1], ref_net.net_layers(ncfg), batch, loop_len,
+                               unprofiled)
     del sp, step, recorder.net, net
     if on_card:
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    checks, failed = check(r, weights, rec, recorder.rows, plies, opening_moves, lanes)
+    checks, failed = check(r, ref_net, weights, rec, recorder.rows, plies, opening_moves, lanes)
     note(f"comparison {time.perf_counter() - t:.2f}s")
     return harness.Outcome(end_to_end={"env_steps_per_s": rate, "setup_s": setup_s},
                            attempted=batch * moves, failed=failed, checks=checks,
@@ -387,9 +389,9 @@ class Stretch:
             self.evals = self.seen - self.first
 
 
-def _trace_numbers(device: Stretch, host: Stretch, ncfg, batch, loop_len, unprofiled) -> Dict:
+def _trace_numbers(device: Stretch, host: Stretch, layers, batch, loop_len, unprofiled) -> Dict:
     """What the per-layer readers take from the two profiled stretches and
-    the unprofiled moves."""
+    the unprofiled moves; ``layers`` is the net's ``net_layers``."""
     t = time.perf_counter()
     tr = trace_lib.digest(device.profile)
     ops = trace_lib.digest(host.profile)
@@ -401,7 +403,7 @@ def _trace_numbers(device: Stretch, host: Stretch, ncfg, batch, loop_len, unprof
     k1_bound = sum(arith.select_bound(float(d.sum()), b, t_, a)["bound_s"]
                    for d, b, t_, a in device.stash.k1)
     k2_bound = arith.rows_bound((lane, int((w >= 0).sum()), b) for lane, w, b in device.stash.k2)
-    net_flops = arith.net_flops(ncfg) * batch * (1 + loop_len)
+    net_flops = arith.net_flops(layers) * batch * (1 + loop_len)
 
     def seconds(names):
         return sum(s for n, s in tr["by_name"].items() if n in names)
@@ -412,8 +414,8 @@ def _trace_numbers(device: Stretch, host: Stretch, ncfg, batch, loop_len, unprof
         move_scale=loop_len / device.stash.k1_launches if device.stash.k1_launches else None,
         transpose_s=seconds({n for n in tr["by_name"] if any(m in n for m in TRANSPOSE_MARKS)}),
         conv_launched_s=seconds(conv_names) if conv_names else 0.0,
-        conv_flops=arith.conv_flops(ncfg) * batch * device.evals,
-        conv_bytes=arith.conv_bytes(ncfg, batch) * device.evals,
+        conv_flops=arith.conv_flops(layers) * batch * device.evals,
+        conv_bytes=arith.conv_bytes(layers, batch) * device.evals,
         k1_device_s=seconds({n for n in tr["by_name"] if K1_KERNEL in n}),
         k1_bound_s=k1_bound,
         k2_device_s=seconds({n for n in tr["by_name"] if K2_KERNEL in n}),
@@ -436,9 +438,10 @@ class Diverged(Exception):
     pass
 
 
-def check(r: harness.Run, weights, rec: Record, rows, plies, opening_moves, lanes):
-    """Judges the sampled games' moves and every net evaluation of them;
-    returns (checks, failed lane-moves)."""
+def check(r: harness.Run, ref_net, weights, rec: Record, rows, plies, opening_moves, lanes):
+    """Judges the sampled games' moves and every net evaluation of them,
+    the latter against ``ref_net``, the net's reference module; returns
+    (checks, failed lane-moves)."""
     dev = r.device
     config, limits = r.config, r.cell["limits"]
     obs = torch.stack([o for o, _, _ in rows], dim=1)           # [k, E, N, N, C]

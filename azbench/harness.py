@@ -5,17 +5,28 @@ seeds, the per-layer readers, and the result line.
 cell's own file is ``workloads/<cell>.json``, the configuration's
 ``configs/<config>.json``, the mix's ``traffic/<traffic>.json``; the mix
 names the entry, ``entries/<entry>.py``, whose ``run(run)`` drives the
-program and returns an ``Outcome``. Each per-layer metric is read by
-``metrics/<metric>.py:read(trace)``, which returns a number, or None when
-the trace holds nothing for it.
+program and returns an ``Outcome``. The configuration names its game,
+whose reference engine is ``reference/<game>.py``, and its net, whose
+reference is ``reference/nets/<net>.py`` (``reference_net``):
+``calibrated_weights(cfg, seed, device, rows=256)``, a state dict under the
+port's names; ``forward(w, cfg, obs, fp8=False, calibrate=False)`` in
+float32 with TF32 off, and with ``fp8=True`` the comparison's control;
+``evaluate(w, cfg, obs, fp8=False, block=1024)``; and ``net_layers(cfg)``,
+the (convs, denses) that ``arith`` counts (``reference/nets/__init__.py``).
+The program's net is the one the port's ``models/resnet.py:build_network``
+builds from the configuration's ``network``. Each per-layer metric is
+read by ``metrics/<metric>.py:read(trace)``, which returns a number, or
+None when the trace holds nothing for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import importlib
 import importlib.util
 import json
+import pkgutil
 import sys
 from pathlib import Path
 from types import ModuleType
@@ -49,6 +60,25 @@ def load_module(path: Path) -> ModuleType:
     sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
+
+
+def reference_net(config: dict) -> ModuleType:
+    """The reference module of the net that ``config`` names,
+    ``azbench.reference.nets.<net>``; ends the run if there is none."""
+    import azbench.reference.nets as nets
+
+    net = config.get("net")
+    module = f"{nets.__name__}.{net}"
+    if isinstance(net, str) and net.isidentifier() and not net.startswith("_"):
+        try:
+            return importlib.import_module(module)
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+    present = sorted(m.name for m in pkgutil.iter_modules(nets.__path__)
+                     if not m.name.startswith("_"))
+    raise SystemExit(f"the configuration names net {net!r}, which has no module "
+                     f"{module}: the nets present are {present}")
 
 
 def subseed(seed: int, tag: str) -> int:

@@ -30,15 +30,15 @@ back; normalisation and activations stay float32.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from azbench.reference.nets import _e4m3, _float32_exact, calibration_boards
+
 BN_EPS = 1e-5
-E4M3_MAX = 448.0
 
 
 def layout(cfg: dict) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -93,40 +93,6 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         w[f"{prefix}.running_mean"] = torch.zeros(c, device=device)
         w[f"{prefix}.running_var"] = torch.ones(c, device=device)
     return w
-
-
-def calibration_boards(cfg: dict, rows: int, seed: int, device) -> torch.Tensor:
-    """int8 [rows, N, N, C] observations of random boards: stone density
-    uniform in [0, 0.7] a board, older history planes with fewer stones."""
-    n, s = cfg["board_size"], cfg["num_stack"]
-    gen = torch.Generator(device=device).manual_seed(seed)
-    density = torch.rand((rows, 1, 1, 1), generator=gen, device=device) * 0.7
-    u = torch.rand((rows, 1, n, n), generator=gen, device=device)
-    color = torch.where(torch.rand((rows, 1, n, n), generator=gen, device=device) < 0.5, 1, -1)
-    age = torch.arange(s, device=device).reshape(1, s, 1, 1)
-    board = torch.where(u < density * (1.0 - 0.05 * age), color, 0)  # [rows, S, N, N]
-    to_play = torch.where(torch.rand((rows, 1, 1, 1), generator=gen, device=device) < 0.5, 1, -1)
-    planes = torch.stack([board == to_play, board == -to_play], dim=2).reshape(rows, 2 * s, n, n)
-    black = (to_play == 1).expand(rows, 1, n, n)
-    return torch.cat([planes, black], dim=1).to(torch.int8).permute(0, 2, 3, 1)
-
-
-@contextlib.contextmanager
-def _float32_exact():
-    """TF32 off for convolutions and matrix products, restored after."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
-
-
-def _e4m3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``x`` rounded to e4m3 with one scale (its largest magnitude to 448):
-    the rounded values, exact in bf16, and the scale."""
-    scale = x.abs().amax().clamp_min(1e-12) / E4M3_MAX
-    return (x / scale).to(torch.float8_e4m3fn).to(torch.bfloat16), scale
 
 
 def forward(w: Dict[str, torch.Tensor], cfg: dict, obs: torch.Tensor, fp8: bool = False,
@@ -194,3 +160,16 @@ def evaluate(w: Dict[str, torch.Tensor], cfg: dict, obs: torch.Tensor, fp8: bool
             logits.append(lg)
             values.append(v)
     return torch.cat(logits), torch.cat(values)
+
+
+def net_layers(cfg: dict) -> Tuple[list, list]:
+    """(convs, denses) of one position's forward pass: convs as (c_in,
+    c_out, kernel, in_side, out_side), denses as (fan_in, fan_out). ``cfg``
+    is a configuration's ``env`` and ``network`` merged."""
+    n, f, fc = cfg["board_size"], cfg["num_filters"], cfg["num_fc_units"]
+    side = n + 2 * stem_padding(cfg) - 2
+    planes = 2 * cfg["num_stack"] + 1
+    convs = [(planes, f, 3, n, side)] + [(f, f, 3, side, side)] * (2 * cfg["num_res_blocks"])
+    convs += [(f, 2, 1, side, side), (f, 1, 1, side, side)]
+    denses = [(2 * side * side, n * n + 1), (side * side, fc), (fc, 1)]
+    return convs, denses

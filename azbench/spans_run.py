@@ -99,12 +99,12 @@ def cell_step(r):
     from alpha_zero_tpu_torch.training import selfplay
     from alpha_zero_tpu_torch.training.pipeline import build_engine
     from azbench import harness
-    from azbench.reference import net as ref_net
 
     entry = entry_of(r)
     on_card = r.device.type == "cuda"
     dev, config = r.device, r.config
     cfg, ncfg = entry.program_config(config), entry.net_config(config)
+    ref_net = harness.reference_net(config)
     batch, sims = config["selfplay_batch_size"], config["search"]["num_simulations"]
     if on_card:
         _build.build_all()

@@ -12,6 +12,7 @@ LIMITS = {"search_pi_gap": 1e-4, "policy_tv": 0.03, "value_mae": 0.03}
 
 def config(dtype: str = "float32", batch: int = 16) -> dict:
     return {
+        "net": "resnet",
         "env": {"game": "go", "board_size": 5, "num_stack": 8, "komi": 7.5, "max_steps": 50},
         "network": {"num_res_blocks": 2, "num_filters": 16, "num_fc_units": 16, "gomoku": False,
                     "inference_dtype": dtype},

@@ -10,6 +10,7 @@ from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.models import resnet
 from alpha_zero_tpu_torch.tools import dma_probe, select_bench
 from azbench import arith, harness
+from azbench.reference.nets import resnet as ref_resnet
 
 
 @pytest.mark.parametrize("name", ["go9", "go19_jumbo"])
@@ -24,8 +25,9 @@ def test_net_flops_match_flop_counter(name):
         net(obs)
     counts = counter.get_flop_counts()["Global"]
     convs = sum(v for k, v in counts.items() if "convolution" in str(k))
-    assert arith.conv_flops(cfg) * 2 == convs
-    assert arith.net_flops(cfg) * 2 == counter.get_total_flops()
+    layers = ref_resnet.net_layers(cfg)
+    assert arith.conv_flops(layers) * 2 == convs
+    assert arith.net_flops(layers) * 2 == counter.get_total_flops()
 
 
 def test_conv_bytes_count_each_tensor_once():
@@ -34,7 +36,7 @@ def test_conv_bytes_count_each_tensor_once():
     stem = 17 * 81 + 128 * 17 * 9 + 128 * 81
     block = 128 * 81 + 128 * 128 * 9 + 128 * 81
     heads = (128 * 81 + 2 * 128 + 2 * 81) + (128 * 81 + 128 + 81)
-    assert arith.conv_bytes(cfg, 1) == 2 * (stem + 20 * block + heads)
+    assert arith.conv_bytes(ref_resnet.net_layers(cfg), 1) == 2 * (stem + 20 * block + heads)
 
 
 @pytest.mark.parametrize("b,t,a", [(1024, 201, 82), (512, 801, 362), (3, 17, 26)])

@@ -26,7 +26,7 @@ def test_a_run_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, '.');"
         "from azbench import harness, arith, trace;"
-        "import azbench.reference.go, azbench.reference.net, azbench.reference.mcts;"
+        "import azbench.reference.go, azbench.reference.nets.resnet, azbench.reference.mcts;"
         "harness.load_module(harness.HERE / 'entries' / 'selfplay.py');"
         "[harness.load_module(p) for p in sorted((harness.HERE / 'metrics').glob('*.py'))];"
         "bad = harness.forbidden_modules(); print(bad); sys.exit(1 if bad else 0)")
@@ -36,7 +36,7 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in (harness.HERE / "reference").glob("*.py"):
+    for path in (harness.HERE / "reference").rglob("*.py"):
         text = path.read_text()
         assert "alpha_zero_tpu" not in text.replace("alpha_zero_tpu_torch", ""), path
         assert "import alpha_zero_tpu_torch" not in text and "from alpha_zero_tpu_torch" not in text

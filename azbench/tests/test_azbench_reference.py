@@ -12,7 +12,7 @@ from alpha_zero_tpu_torch.models import resnet
 from alpha_zero_tpu_torch.training import selfplay
 from azbench import harness
 from azbench.reference import go as ref_go
-from azbench.reference import net as ref_net
+from azbench.reference.nets import resnet as ref_net
 
 
 @pytest.mark.parametrize("n,games,max_steps", [(5, 48, 50), (9, 16, 162)])
