@@ -4,6 +4,7 @@ Field values mirror the reference training scripts exactly:
 - ``go9``       <- ``alpha_zero/training_go.py:31-199``        (9x9 Go, 10 blocks x 128 filters, 200 sims)
 - ``go19_jumbo``<- ``alpha_zero/training_go_jumbo.py``          (19x19 Go, 19 x 256, 800 sims, AZ-paper lr 0.2)
 - ``gomoku13``  <- ``alpha_zero/training_gomoku.py``            (13x13 freestyle Gomoku, 10 x 40, 380 sims)
+- ``go19_b18c384nbt`` <- ``go19_jumbo`` with KataGo's ``b18c384nbt`` net (``models/nbt.py``)
 
 TPU-specific knobs (``selfplay_batch_size``, ``mesh_*``) replace the reference's
 process-count knobs (``num_actors``): the actor fleet becomes one batched,
@@ -47,6 +48,18 @@ class EnvConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
+    """The net ``models/resnet.py:build_network`` builds. ``architecture``
+    "resnet" is the reference's ``AlphaZeroNet``: ``num_res_blocks`` basic
+    blocks of ``num_filters`` channels, a value head of ``num_fc_units``.
+    "nbt" is KataGo's nested-bottleneck net (``models/nbt.py``):
+    ``num_res_blocks`` blocks on a ``num_filters`` trunk, each a 1x1 conv down
+    to ``nbt_mid_channels``, two inner residual blocks and a 1x1 conv back;
+    the first inner block of each block in ``nbt_gpool_blocks`` (1-based, comma
+    separated) adds a bias pooled from ``nbt_gpool_channels`` channels; the
+    heads have ``nbt_policy_channels``, ``nbt_policy_gpool_channels`` and
+    ``nbt_value_channels``, the value head ``num_fc_units``. The ``nbt_*``
+    defaults are KataGo's ``b18c384nbt`` and unused by the ResNet."""
+
     num_res_blocks: int = 10
     num_filters: int = 128
     num_fc_units: int = 128
@@ -54,6 +67,13 @@ class NetworkConfig:
     gomoku: bool = False
     # TPU: bf16 matmuls on the MXU for self-play inference; fp32 master weights.
     inference_dtype: str = "bfloat16"
+    architecture: str = "resnet"  # 'resnet' | 'nbt'
+    nbt_mid_channels: int = 192
+    nbt_gpool_channels: int = 64
+    nbt_gpool_blocks: str = "3,6,9,12,15"
+    nbt_policy_channels: int = 48
+    nbt_policy_gpool_channels: int = 48
+    nbt_value_channels: int = 96
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +238,21 @@ def go19_jumbo() -> AlphaZeroConfig:
     )
 
 
+def go19_b18c384nbt() -> AlphaZeroConfig:
+    """``go19_jumbo``'s game, search, resignation, training and batch with
+    KataGo's ``b18c384nbt`` net (lightvector/KataGo
+    ``python/katago/train/modelconfigs.py``): 18 nested-bottleneck blocks on
+    a 384 trunk, 192 mid channels, 64 pooled channels, bf16 inference."""
+    cfg = go19_jumbo()
+    return dataclasses.replace(
+        cfg,
+        network=NetworkConfig(architecture="nbt", num_res_blocks=18, num_filters=384,
+                              num_fc_units=128),
+        run=RunConfig(ckpt_dir="./checkpoints/go/19x19_b18c384nbt",
+                      logs_dir="./logs/go/19x19_b18c384nbt"),
+    )
+
+
 def gomoku13() -> AlphaZeroConfig:
     """13x13 freestyle Gomoku config (reference training_gomoku.py defaults)."""
     return AlphaZeroConfig(
@@ -252,6 +287,7 @@ def gomoku9() -> AlphaZeroConfig:
 CONFIGS = {
     "go9": go9,
     "go19_jumbo": go19_jumbo,
+    "go19_b18c384nbt": go19_b18c384nbt,
     "gomoku13": gomoku13,
     "gomoku9": gomoku9,
 }

@@ -204,6 +204,23 @@ def _bn(c: int) -> BatchNorm:
     return BatchNorm(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
 
+def reset_parameters(net: nn.Module, generator: torch.Generator) -> None:
+    """Kaiming-uniform weights U(+-sqrt(6 / fan_in)), zero biases, BN at
+    identity — the Flax net's initializers — drawn module by module in
+    ``net.modules()`` order."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                bound = math.sqrt(6.0 / fan_in)
+                w = torch.rand(m.weight.shape, generator=generator) * (2 * bound) - bound
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+
 class ResNetBlock(nn.Module):
     """Basic residual block."""
 
@@ -249,21 +266,6 @@ class AlphaZeroNet(nn.Module):
         return {f"{name}.weight" for name, m in self.named_modules()
                 if isinstance(m, (ColumnParallelConv2d, ColumnParallelLinear))}
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Kaiming-uniform weights U(+-sqrt(6 / fan_in)), zero biases, BN
-        at identity — the Flax net's initializers."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Linear)):
-                    fan_in = m.weight[0].numel()
-                    bound = math.sqrt(6.0 / fan_in)
-                    w = torch.rand(m.weight.shape, generator=generator) * (2 * bound) - bound
-                    m.weight.copy_(w)
-                    if m.bias is not None:
-                        m.bias.zero_()
-                elif isinstance(m, nn.BatchNorm2d):
-                    m.reset_parameters()
-
     @staticmethod
     def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
@@ -304,32 +306,48 @@ def to_inference_dtype(net: nn.Module, dtype) -> nn.Module:
 
 
 def build_network(env_cfg, net_cfg, device="cuda", seed: int = 0,
-                  dtype: Optional[str] = None, mesh: Optional[Mesh] = None) -> AlphaZeroNet:
-    """The net for an (EnvConfig, NetworkConfig) pair, with random weights
-    drawn from ``seed``, in eval mode, with parameters in ``dtype`` (default:
-    the config's inference dtype; BatchNorm stays float32). With a ``mesh``
-    of ``mdl > 1``, this rank's part of it (``multihost.mdl_index``): the
-    slices of the whole net drawn from ``seed``."""
+                  dtype: Optional[str] = None, mesh: Optional[Mesh] = None) -> nn.Module:
+    """The net for an (EnvConfig, NetworkConfig) pair: ``AlphaZeroNet`` when
+    ``net_cfg.architecture`` is "resnet", KataGo's nested-bottleneck net
+    (``models/nbt.py:NestedBottleneckNet``) when it is "nbt". Its random
+    weights are drawn from ``seed`` (``reset_parameters``); it is in eval
+    mode, with parameters in ``dtype`` (default: the config's inference
+    dtype; BatchNorm stays float32). With a ``mesh`` of ``mdl > 1``, this
+    rank's part of the ResNet (``multihost.mdl_index``): the slices of the
+    whole net drawn from ``seed``. The nbt net has no model axis."""
     dev = resolve_device(device)
+    if net_cfg.architecture not in ("resnet", "nbt"):
+        raise ValueError(f"network.architecture is {net_cfg.architecture!r}: "
+                         "'resnet' or 'nbt'")
+    generator = torch.Generator().manual_seed(seed)
+    if net_cfg.architecture == "nbt":
+        from alpha_zero_tpu_torch.models.nbt import NestedBottleneckNet  # builds on this module
 
-    def net(mdl):
-        return AlphaZeroNet(
-            num_actions=env_cfg.num_actions,
-            board_size=env_cfg.board_size,
-            num_planes=env_cfg.num_planes,
-            num_res_blocks=net_cfg.num_res_blocks,
-            num_filters=net_cfg.num_filters,
-            num_fc_units=net_cfg.num_fc_units,
-            gomoku=net_cfg.gomoku,
-            mdl=mdl,
-        )
+        if mesh is not None and mesh.mdl > 1:
+            raise ValueError(f"the nbt net has no model axis: parallel.mdl is {mesh.mdl}, "
+                             "and one card holds the whole net; use parallel.mdl=1")
+        whole = NestedBottleneckNet.from_config(env_cfg, net_cfg)
+        reset_parameters(whole, generator)
+    else:
+        def net(mdl):
+            return AlphaZeroNet(
+                num_actions=env_cfg.num_actions,
+                board_size=env_cfg.board_size,
+                num_planes=env_cfg.num_planes,
+                num_res_blocks=net_cfg.num_res_blocks,
+                num_filters=net_cfg.num_filters,
+                num_fc_units=net_cfg.num_fc_units,
+                gomoku=net_cfg.gomoku,
+                mdl=mdl,
+            )
 
-    whole = net(1)
-    whole.reset_parameters(torch.Generator().manual_seed(seed))
-    if mesh is not None and mesh.mdl > 1:
-        part = net(mesh.mdl)
-        part.load_state_dict(shard_state_dict(whole.state_dict(), mesh, multihost.mdl_index()))
-        whole = part
+        whole = net(1)
+        reset_parameters(whole, generator)
+        if mesh is not None and mesh.mdl > 1:
+            part = net(mesh.mdl)
+            part.load_state_dict(shard_state_dict(whole.state_dict(), mesh,
+                                                  multihost.mdl_index()))
+            whole = part
     return to_inference_dtype(whole.to(dev), dtype or net_cfg.inference_dtype).eval()
 
 
@@ -347,7 +365,7 @@ def shard_state_dict(full: dict, mesh: Mesh, mdl_index: int) -> dict:
     return out
 
 
-def gather_state_dict(net: AlphaZeroNet, tensors: Optional[dict] = None) -> dict:
+def gather_state_dict(net: nn.Module, tensors: Optional[dict] = None) -> dict:
     """The whole layout of ``net``'s ``state_dict`` (or of ``tensors``, a
     dict named as its parameters): every slice gathered over the model
     group. A collective over the model group when ``net`` is sharded."""

@@ -37,15 +37,15 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-from alpha_zero_tpu_torch.models.resnet import AlphaZeroNet
 from alpha_zero_tpu_torch.ops.symmetry import IDENTITY, apply_transform
 from alpha_zero_tpu_torch.parallel import multihost
 
 
 @dataclasses.dataclass
 class TrainState:
-    net: AlphaZeroNet                                   # float32 master weights, train mode
+    net: nn.Module     # either net of build_network: float32 master weights, train mode
     optimizer: torch.optim.SGD
     scheduler: torch.optim.lr_scheduler.MultiStepLR
     training_steps: int = 0
@@ -73,7 +73,7 @@ def make_optimizer(params, init_lr: float, lr_decay: float, milestones,
     return optimizer, make_lr_schedule(optimizer, lr_decay, milestones)
 
 
-def create_train_state(net: AlphaZeroNet, train_cfg) -> TrainState:
+def create_train_state(net: nn.Module, train_cfg) -> TrainState:
     """A fresh state around ``net`` (float32), put in train mode."""
     optimizer, scheduler = make_optimizer(
         net.parameters(), train_cfg.init_lr, train_cfg.lr_decay,
@@ -82,7 +82,7 @@ def create_train_state(net: AlphaZeroNet, train_cfg) -> TrainState:
     return TrainState(net=net.train(), optimizer=optimizer, scheduler=scheduler)
 
 
-def loss_fn(net: AlphaZeroNet, states: torch.Tensor, target_pi: torch.Tensor,
+def loss_fn(net: nn.Module, states: torch.Tensor, target_pi: torch.Tensor,
             target_v: torch.Tensor, compute_dtype: torch.dtype):
     """(policy_loss, value_loss) of ``net`` in train mode on one batch."""
     with torch.autocast(states.device.type, dtype=compute_dtype,

@@ -4,12 +4,15 @@ with the JAX package's.
 - ``count_params`` of every config's net equal to JAX's ``count_params``
   over the Flax parameters (shapes from ``jax.eval_shape``, so nothing
   compiles the 19 x 256 net), and ``params --device cpu`` printing them in
-  the JAX command's format.
+  the JAX command's format; the configs the JAX package lacks (the nbt
+  net's) with the count of the benchmark reference's layout
+  (``azbench/reference/nets/nbt.py``).
 - ``puct``, ``score-demo``, ``aggregate-matches``, ``aggregate-actors`` and
   ``filter-sgf``: the same stdout (and the same areas, aggregated CSV and
   copied files) as the JAX command on the same inputs.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -26,6 +29,7 @@ from alpha_zero_tpu.models.resnet import count_params as jax_count_params
 from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.cli import analysis
 from alpha_zero_tpu_torch.models.resnet import build_network, count_params
+from azbench.reference.nets import nbt as nbt_ref
 
 from torch_parity import one_torch_thread  # noqa: F401
 
@@ -41,7 +45,17 @@ def _jax_count(name):
     return jax_count_params(shapes["params"])
 
 
-@pytest.mark.parametrize("name", sorted(config_lib.CONFIGS))
+def _nbt_count(name):
+    """Parameters of the nbt net of the port's config ``name``: the kernels,
+    dense biases and norm scales and shifts of ``nbt_ref.layout``."""
+    cfg = config_lib.get_config(name)
+    kernels, norms = nbt_ref.layout({**dataclasses.asdict(cfg.env),
+                                     **dataclasses.asdict(cfg.network)})
+    dense = sum(s[0] for k, s in kernels if len(s) == 2)
+    return sum(int(np.prod(s)) for _, s in kernels) + dense + sum(2 * c for _, c in norms)
+
+
+@pytest.mark.parametrize("name", sorted(set(config_lib.CONFIGS) & set(jax_config.CONFIGS)))
 def test_count_params_like_jax(name):
     cfg = config_lib.get_config(name)
     net = build_network(cfg.env, cfg.network, device="cpu")
@@ -53,11 +67,12 @@ def test_count_params_like_jax(name):
 def test_params_command_prints_the_jax_counts(capsys):
     analysis.main(["params", "--device", "cpu"])
     want = []
-    for name in sorted(jax_config.CONFIGS):
-        cfg = jax_config.get_config(name)
+    for name in sorted(config_lib.CONFIGS):
+        cfg = config_lib.get_config(name)
         n = cfg.env.board_size
+        count = _jax_count(name) if name in jax_config.CONFIGS else _nbt_count(name)
         want.append(f"{name:12s} board={n:2d} blocks={cfg.network.num_res_blocks:2d} "
-                    f"filters={cfg.network.num_filters:3d} params={_jax_count(name):,}")
+                    f"filters={cfg.network.num_filters:3d} params={count:,}")
     assert capsys.readouterr().out.splitlines() == want
 
 
