@@ -189,7 +189,7 @@ class Evaluator:
         self.draws = draws
         # The latest and the previous checkpoint's nets.
         self.latest_net, self.prev_net = (
-            to_inference_dtype(copy.deepcopy(net), inference_dtype).to(self.device).eval()
+            to_inference_dtype(copy.deepcopy(net).to(self.device), inference_dtype).eval()
             for _ in range(2))
         self.has_prev = False
         self.black_elo = EloRating(rating=default_rating)

@@ -38,7 +38,12 @@ nothing).
 
 The layout is NCHW as in ``AlphaZeroNet``, and the call takes NHWC planes.
 Inference in bf16 and training run as the ResNet's do
-(``resnet.to_inference_dtype``, ``training/learner.py``). Inside a traced
+(``resnet.to_inference_dtype``, ``training/learner.py``): on the card a bf16
+eval net holds its activations in NHWC memory and runs its norms as K5
+(``resnet.norm_relu``, ``resnet.add_norm_relu``). So that a residual sum and
+the activation of the norm after it come out of one pass, each block maps
+its input's activation to its residual branch, and the loops over blocks
+(``residual_stack``) add the branches and apply the norms. Inside a traced
 call (``utils/trace.py``) the net records the spans ``net.trunk``,
 ``net.gpool`` (each pooling site) and ``net.heads``, and the counters
 ``net.positions`` (the call's rows) and ``net.gpool_sites``.
@@ -51,7 +56,8 @@ from typing import List
 import torch
 from torch import nn
 
-from alpha_zero_tpu_torch.models.resnet import NetworkOutputs, _bn, _conv, _linear
+from alpha_zero_tpu_torch.models.resnet import (NetworkOutputs, _bn, _conv, _linear,
+                                                add_norm_relu, norm_relu, planes_input)
 from alpha_zero_tpu_torch.utils import trace
 
 
@@ -74,8 +80,22 @@ def vpool(t: torch.Tensor, scale: float, scale2: float) -> torch.Tensor:
     return torch.cat([mean, mean * scale, mean * scale2], dim=1)
 
 
+def residual_stack(y: torch.Tensor, blocks, norms: List[nn.Module]) -> torch.Tensor:
+    """``y`` through the pre-activation residual ``blocks``: ``norms[i]`` is
+    the norm before block ``i`` and ``norms[-1]`` the one after the last;
+    each block maps that norm's activation to its residual branch. Returns
+    ``act(norms[-1](...))``. Each residual sum and the activation of the
+    norm after it come out of one pass (``resnet.add_norm_relu``); the last
+    sum is not kept."""
+    a = norm_relu(norms[0], y)
+    for block, norm in zip(blocks, norms[1:]):
+        y, a = add_norm_relu(y, block(a), norm, keep_sum=norm is not norms[-1])
+    return a
+
+
 class InnerBlock(nn.Module):
-    """A pre-activation residual block of two 3x3 convs at ``c`` channels."""
+    """A pre-activation residual block of two 3x3 convs at ``c`` channels:
+    y -> y + conv2(act(bn2(conv1(act(bn1(y))))))."""
 
     def __init__(self, c: int) -> None:
         super().__init__()
@@ -84,9 +104,10 @@ class InnerBlock(nn.Module):
         self.bn2 = _bn(c)
         self.conv2 = _conv(c, c, 3, 1)
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        r = self.conv1(torch.relu(self.bn1(y)))
-        return y + self.conv2(torch.relu(self.bn2(r)))
+    def forward(self, a: torch.Tensor) -> torch.Tensor:
+        """The residual branch of ``a`` = act(bn1(y)) (``residual_stack``
+        applies ``bn1`` and adds the branch to y)."""
+        return self.conv2(norm_relu(self.bn2, self.conv1(a)))
 
 
 class PoolingInnerBlock(nn.Module):
@@ -104,14 +125,14 @@ class PoolingInnerBlock(nn.Module):
         self.bn2 = _bn(c - g)
         self.conv2 = _conv(c - g, c, 3, 1)
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
-        a = torch.relu(self.bn1(y))
+    def forward(self, a: torch.Tensor) -> torch.Tensor:
+        """As ``InnerBlock.forward``."""
         h = self.conv1(a)
         with trace.span("net.gpool"):
             trace.count("net.gpool_sites")
-            g = torch.relu(self.gbn(self.gconv(a)))
+            g = norm_relu(self.gbn, self.gconv(a))
             h = h + self.gfc(gpool(g, self.scale))[:, :, None, None]
-        return y + self.conv2(torch.relu(self.bn2(h)))
+        return self.conv2(norm_relu(self.bn2, h))
 
 
 class NestedBottleneckBlock(nn.Module):
@@ -125,11 +146,11 @@ class NestedBottleneckBlock(nn.Module):
         self.bn_out = _bn(mid)
         self.conv_out = _conv(mid, trunk, 1, 0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv_in(torch.relu(self.bn_in(x)))
-        for block in self.inner:
-            y = block(y)
-        return x + self.conv_out(torch.relu(self.bn_out(y)))
+    def forward(self, a: torch.Tensor) -> torch.Tensor:
+        """The residual branch of ``a`` = act(bn_in(x)), as
+        ``InnerBlock.forward``."""
+        norms = [block.bn1 for block in self.inner] + [self.bn_out]
+        return self.conv_out(residual_stack(self.conv_in(a), self.inner, norms))
 
 
 class NestedBottleneckNet(nn.Module):
@@ -190,22 +211,21 @@ class NestedBottleneckNet(nn.Module):
         """x: [B, N, N, C] board planes (NHWC, any dtype)."""
         trace.count("net.positions", x.shape[0])
         with trace.span("net.trunk"):
-            y = self.stem_conv(x.permute(0, 3, 1, 2).to(self.stem_conv.weight.dtype))
-            for block in self.blocks:
-                y = block(y)
-            y = torch.relu(self.trunk_bn(y))
+            y = self.stem_conv(planes_input(x, self.stem_conv))
+            norms = [block.bn_in for block in self.blocks] + [self.trunk_bn]
+            y = residual_stack(y, self.blocks, norms)
 
         with trace.span("net.heads"):
             p = self.policy_conv(y)
             with trace.span("net.gpool"):
                 trace.count("net.gpool_sites")
-                q = gpool(torch.relu(self.policy_gbn(self.policy_gconv(y))), self.scale)
+                q = gpool(norm_relu(self.policy_gbn, self.policy_gconv(y)), self.scale)
                 p = p + self.policy_gfc(q)[:, :, None, None]
                 pass_logit = self.pass_fc2(torch.relu(self.pass_fc1(q)))
-            board = self.policy_out(torch.relu(self.policy_bn(p))).flatten(1)
+            board = self.policy_out(norm_relu(self.policy_bn, p)).flatten(1)
             pi_logits = torch.cat([board, pass_logit], dim=1)
 
-            v = torch.relu(self.value_bn(self.value_conv(y)))
+            v = norm_relu(self.value_bn, self.value_conv(y))
             with trace.span("net.gpool"):
                 trace.count("net.gpool_sites")
                 v = vpool(v, self.scale, self.value_scale)

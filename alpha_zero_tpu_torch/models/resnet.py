@@ -8,6 +8,14 @@ skip) -> policy head (1x1 conv to 2ch -> BN -> ReLU -> FC) and value head
 The public call takes the JAX package's layout — NHWC int8 planes — and
 permutes to NCHW inside. The heads flatten in HWC order, as the Flax net
 does, so Flax Dense kernels load without permuting (``params_from_flax``).
+A bf16 net on the card with no model axis keeps its conv weights, and so
+its activations, in NHWC memory (``torch.channels_last``;
+``to_inference_dtype``), and in eval mode every norm whose width is a
+multiple of 8 runs with its ReLU and residual add as one CUDA kernel, K5
+(``norm_relu``, ``norm_add_relu``, ``add_norm_relu``;
+``ops/norm_kernels.py``), bit-equal to the plain ops it replaces.
+Train-mode and float32 nets, nets with the model axis (whose weights stay
+NCHW) and the CPU run the plain ops as before.
 Inference in bf16 mirrors Flax ``dtype=bfloat16``: the convolutions and
 dense layers hold bf16 parameters, every BatchNorm keeps its scale, bias
 and running statistics in float32 and normalizes in float32
@@ -40,8 +48,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alpha_zero_tpu_torch.ops import norm_kernels
 from alpha_zero_tpu_torch.parallel import multihost
 from alpha_zero_tpu_torch.parallel.mesh import Mesh, shard_spec
+from alpha_zero_tpu_torch.utils import trace
 from alpha_zero_tpu_torch.utils.device import resolve_device
 
 _BN_EPS = 1e-5       # Flax BatchNorm's default epsilon
@@ -192,7 +202,14 @@ class BatchNorm(nn.BatchNorm2d):
     float32 weights and statistics, normalizes in float32 and returns bf16
     on the CPU and the card alike: Flax's ``BatchNorm(dtype=bfloat16)``,
     which casts only its output (flax ``linen/normalization.py:_normalize``),
-    in one launch."""
+    in one launch.
+
+    ``plain_on_card`` is set on the norms of a net with the model axis,
+    whose column-parallel convs gather their outputs NCHW, and of the NCHW
+    twin a net is compared with (``tools/norm_bench.py:nchw_twin``): they
+    run as plain ops on the card in eval mode too, and never as K5."""
+
+    plain_on_card = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -202,6 +219,55 @@ class BatchNorm(nn.BatchNorm2d):
 
 def _bn(c: int) -> BatchNorm:
     return BatchNorm(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+
+
+def _fused(bn: BatchNorm, x: torch.Tensor) -> bool:
+    """Whether ``bn`` of ``x`` runs as K5. The plain ops run in train mode,
+    off the card, for a tensor that is not bf16 (a float32 net), for a
+    width that is not a multiple of 8 (the ResNet's heads) and in a net
+    with the model axis (``BatchNorm.plain_on_card``); every other norm
+    goes to K5, which raises on activations not laid out NHWC. Inside a
+    traced call, counts ``net.fused_norms`` or ``net.plain_norms``."""
+    fused = (not bn.training and x.is_cuda and x.dtype == torch.bfloat16
+             and x.shape[1] % 8 == 0 and not bn.plain_on_card)
+    trace.count("net.fused_norms" if fused else "net.plain_norms")
+    return fused
+
+
+def norm_relu(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``relu(bn(x))``."""
+    if _fused(bn, x):
+        return norm_kernels.norm_act(norm_kernels.NORM_RELU, x, bn)[1]
+    return torch.relu(bn(x))
+
+
+def norm_add_relu(bn: BatchNorm, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    """``relu(bn(x) + res)``: the ResNet block's tail."""
+    if _fused(bn, x):
+        return norm_kernels.norm_act(norm_kernels.NORM_ADD_RELU, x, bn, res)[1]
+    return torch.relu(bn(x) + res)
+
+
+def add_norm_relu(x: torch.Tensor, res: torch.Tensor, bn: BatchNorm,
+                  keep_sum: bool = True):
+    """``(x + res, relu(bn(x + res)))``: a pre-activation block's residual
+    sum and the next norm's activation. Without ``keep_sum`` the sum may
+    come back None (K5 does not write it)."""
+    if _fused(bn, x):
+        return norm_kernels.norm_act(norm_kernels.ADD_NORM_RELU, x, bn, res, keep_sum)
+    s = x + res
+    return s, torch.relu(bn(s))
+
+
+def planes_input(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """NHWC board planes ``x`` as ``conv``'s NCHW input in its dtype, laid
+    out NHWC in memory when its weight is (``to_inference_dtype``), else in
+    the layout they come in."""
+    x = x.permute(0, 3, 1, 2)
+    w = conv.weight
+    if w.is_contiguous(memory_format=torch.channels_last) and not w.is_contiguous():
+        return x.to(w.dtype, memory_format=torch.channels_last)
+    return x.to(w.dtype)
 
 
 def reset_parameters(net: nn.Module, generator: torch.Generator) -> None:
@@ -232,9 +298,8 @@ class ResNetBlock(nn.Module):
         self.bn2 = _bn(num_filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return torch.relu(y + x)
+        y = norm_relu(self.bn1, self.conv1(x))
+        return norm_add_relu(self.bn2, self.conv2(y), x)
 
 
 class AlphaZeroNet(nn.Module):
@@ -259,6 +324,9 @@ class AlphaZeroNet(nn.Module):
         self.value_bn = _bn(1)
         self.value_fc1 = _linear(side * side, num_fc_units, mdl)
         self.value_fc2 = _linear(num_fc_units, 1, mdl)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.plain_on_card = mdl > 1
 
     def sharded_names(self) -> set:
         """The ``state_dict`` names this rank holds a slice of: the
@@ -273,20 +341,29 @@ class AlphaZeroNet(nn.Module):
     def forward(self, x: torch.Tensor) -> NetworkOutputs:
         """x: [B, N, N, C] board planes (NHWC, any dtype); with ``mdl > 1``
         the same rows on every rank of the model group, a collective."""
-        dtype = self.stem_conv.weight.dtype
-        x = x.permute(0, 3, 1, 2).to(dtype)
-        y = torch.relu(self.stem_bn(self.stem_conv(x)))
+        y = norm_relu(self.stem_bn, self.stem_conv(planes_input(x, self.stem_conv)))
         for block in self.blocks:
             y = block(y)
 
-        p = torch.relu(self.policy_bn(self.policy_conv(y)))
+        p = norm_relu(self.policy_bn, self.policy_conv(y))
         pi_logits = self.policy_fc(self._flatten_hwc(p))
 
-        v = torch.relu(self.value_bn(self.value_conv(y)))
+        v = norm_relu(self.value_bn, self.value_conv(y))
         v = torch.relu(self.value_fc1(self._flatten_hwc(v)))
         v = self.value_fc2(v)
         value = torch.tanh(v.float()).squeeze(-1)
         return NetworkOutputs(pi_logits=pi_logits.float(), value=value)
+
+
+def lays_out_nhwc(net: nn.Module, dtype, device) -> bool:
+    """Whether ``to_inference_dtype`` gives ``net`` NHWC conv weights: a
+    bf16 net on the card whose norms may run as K5 (not a net with the
+    model axis, whose column-parallel convs gather their slices along the
+    channel dimension: ``BatchNorm.plain_on_card``). float32 nets stay NCHW
+    and take the plain norms."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return (dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+            and not any(isinstance(m, BatchNorm) and m.plain_on_card for m in net.modules()))
 
 
 def to_inference_dtype(net: nn.Module, dtype) -> nn.Module:
@@ -294,14 +371,19 @@ def to_inference_dtype(net: nn.Module, dtype) -> nn.Module:
     except its BatchNorm modules, whose weights and buffers stay float32;
     returns ``net``. Every net the port runs in bf16 is made by this. BN's
     tensors are never rounded through ``dtype``: they keep every float32
-    bit of the master weights."""
+    bit of the master weights. Where ``lays_out_nhwc``, the conv weights
+    are laid out ``torch.channels_last``; a later ``load_state_dict``
+    copies into them and keeps that layout."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    first = next(net.parameters(), None)
+    nhwc = first is not None and lays_out_nhwc(net, dtype, first.device)
     for module in net.modules():
         if isinstance(module, nn.BatchNorm2d):
             module.float()
             continue
         for param in module.parameters(recurse=False):
-            param.data = param.data.to(dtype)
+            fmt = torch.channels_last if nhwc and param.dim() == 4 else torch.preserve_format
+            param.data = param.data.to(dtype, memory_format=fmt)
     return net
 
 

@@ -137,6 +137,21 @@ card against its CPU path on small inputs, then drives the port's paths:
   launches a move; then ``tools/bench_torch.py`` as a subprocess with
   ``BENCH_DP=2`` at ``BENCH_DP_RUN`` (two gloo ranks on the card): its
   lines and each rank's launches a move.
+- [19] K5 (``ops/norm_kernels.py:norm_act``, the eval-mode norm with its
+  ReLU and residual add) through ``tools/norm_bench.py:run``: each variant
+  bit-equal to the plain eval chain on NCHW and NHWC memory at the nets'
+  widths (go9 128, go19_jumbo 256, b18c384nbt 384 / 192 / 128 / 64) at
+  their self-play batches and at B=1, its device time from CUDA-graph
+  replays beside its byte bound and the plain chain's; then the go9,
+  go19_jumbo and go19_b18c384nbt bf16 eval nets at B=1 and at their
+  self-play batch, with the weights their benchmark cells' float32
+  references draw and calibrate, NHWC with K5 against the NCHW plain
+  path: bit-equal, or the NHWC net within the cell's ``policy_tv`` and
+  ``value_mae`` limits of the reference; K5 launches a
+  forward, no cuDNN layout transpose in the NHWC forward, and ms a
+  forward of both, the NHWC path no slower at B=1 (the evaluator's,
+  match's, GUI's and ``cli.play``'s batch) than ``NORM_B1_SLACK`` times
+  the NCHW one.
 
 The select kernel K1 is held bit-equal to its plain version on go9 trees
 of the port's own search, a ragged batch, and synthetic trees at the
@@ -163,7 +178,15 @@ process and carried back, ``go19_gui`` [13]'s GUI game, ``go19_b2048``
 ``go9_bench_dp2`` the timed moves of [18]'s two ranks, summed from the
 CLI's stderr line: their warm-up move runs in the ranks, uncounted).
 ``go19_jumbo_b1_*`` are K1's and K2's times on [13]'s
-searched tree, ``go19_jumbo_b2048_*`` on [14]'s.
+searched tree, ``go19_jumbo_b2048_*`` on [14]'s. K5's launches are set to
+0 before each phase that runs in this process ([5], [7], [8], [9], [13],
+[14], [16], [17], [18]; ``k5_counted``), and the phase fails unless they
+equal, forward by forward, the fused norms of every port net it ran:
+each norm of a multiple of 8 channels of a bf16 eval net on the card
+with no model axis (21 a go9 forward, 39 go19_jumbo, 117 b18c384nbt, 21
+gomoku13), none of any other net. The ``norm_act`` entry carries them as
+``launches`` and ``launches_by_path`` under the names above (the ranks of
+[10]-[12] and of [18]'s CLI are not counted).
 
 Every phase raises on failure; there is no CPU fallback. The line before
 the last is the card's name and power limit; the line before that is one
@@ -175,6 +198,7 @@ package must sit beside this file).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -285,6 +309,9 @@ VISITS_STEPS = 2
 # 256 of its 2048 games (a B=2048 move takes ~57 s); then its CLI with
 # BENCH_DP=2 at BENCH_DP_RUN.
 JUMBO_BENCH = ("go19_jumbo", 256, 2)
+# [19]: a B=1 forward of the NHWC net with K5 may take at most this many
+# times the NCHW plain net's (back-to-back times move by a few percent).
+NORM_B1_SLACK = 1.05
 BENCH_DP_RUN = ("go9", 256, 2)
 EVAL_HEADER = ["datetime", "training_steps", "game_length", "game_result", "num_passes",
                "black_elo_rating", "white_elo_rating", "eval_games", "latest_win_rate",
@@ -408,6 +435,53 @@ def counting(fn, plies):
         plies.append((select.launches - s0, writer.launches - w0, time.perf_counter() - t0))
         return out
     return counted
+
+
+@contextlib.contextmanager
+def k5_counted(label, counts, key):
+    """Sets K5's launch count to 0 and, while the block runs, counts the
+    forwards of every port net (a global forward pre-hook) with the K5
+    launches each should make: one a norm of a multiple of 8 channels in a
+    bf16 eval net on the card with no model axis, none in any other net or
+    in a CUDA-graph capture. On leaving, raises unless the launches equal
+    that sum; puts ``(launches, forwards)`` under ``counts[key]``."""
+    import torch
+
+    from alpha_zero_tpu_torch.models.nbt import NestedBottleneckNet
+    from alpha_zero_tpu_torch.models.resnet import AlphaZeroNet, BatchNorm
+    from alpha_zero_tpu_torch.ops import norm_kernels
+
+    norm = norm_kernels.norm_act
+    widths = {}  # id(net) -> its norms of a multiple of 8 channels
+    seen = {"want": 0, "forwards": 0}
+
+    def hook(module, args):
+        if not isinstance(module, (AlphaZeroNet, NestedBottleneckNet)):
+            return
+        if id(module) not in widths:
+            norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+            widths[id(module)] = (norms[0], sum(m.num_features % 8 == 0 for m in norms))
+        first, n = widths[id(module)]
+        w = module.stem_conv.weight
+        if (module.training or not w.is_cuda or w.dtype != torch.bfloat16
+                or first.plain_on_card or not args[0].shape[0]
+                or torch.cuda.is_current_stream_capturing()):
+            n = 0
+        seen["want"] += n
+        seen["forwards"] += 1
+
+    norm.launches = 0
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+    if norm.launches != seen["want"]:
+        raise SystemExit(f"{label} {norm.launches} K5 launches over {seen['forwards']} net "
+                         f"forwards, expected {seen['want']}")
+    counts[key] = (norm.launches, seen["forwards"])
+    print(f"{label} K5: {norm.launches} launches over {seen['forwards']} net forwards, one "
+          f"a fused norm of each", flush=True)
 
 
 def check_plies(label, plies, sims):
@@ -2194,6 +2268,61 @@ def bench_path(card, dev) -> tuple:
     return out, launches
 
 
+def cell_reference(name, batch, device):
+    """The benchmark cell ``name``'s float32 reference net
+    (``azbench/reference/nets``): the weights it draws and calibrates from
+    seed 1, ``batch`` of its calibration boards, and its logits and values
+    on them (``norm_bench.net_cases``'s ``reference``)."""
+    import importlib
+
+    from azbench.entries.selfplay import net_config
+
+    with open(os.path.join(HERE, "azbench", "configs", f"{name}.json")) as f:
+        config = json.load(f)
+    ref = importlib.import_module(f"azbench.reference.nets.{config['net']}")
+    ncfg = net_config(config)
+    weights = ref.calibrated_weights(ncfg, 1, device)
+    obs = ref.calibration_boards(ncfg, batch, 99, device)
+    return (weights, obs) + tuple(ref.evaluate(weights, ncfg, obs))
+
+
+def norm_path(card) -> dict:
+    """[19]: K5 against the plain chain and the nets NHWC against NCHW
+    (``tools/norm_bench.py:run``), the nets with their cells' calibrated
+    weights and boards (``cell_reference``): each net bit-equal to its NCHW
+    twin or, where cuDNN's kernels differ between the layouts, the NHWC
+    net within the cell's ``policy_tv`` and ``value_mae`` limits of the
+    float32 reference. Returns its result."""
+    from alpha_zero_tpu_torch.tools import norm_bench
+
+    t0 = time.time()
+    result = norm_bench.run(reference=cell_reference)
+    bad = [(x["case"], x["variant"], x["mismatches"]) for x in result["kernel"]
+           if sum(x["mismatches"].values())]
+    if bad:
+        raise SystemExit(f"[19] K5 unlike the plain chain: {bad}")
+    for net in result["nets"]:
+        label = f"[19] {net['net']} B={net['batch']}"
+        if net["transposes"] or not net["k5_launches"]:
+            raise SystemExit(f"{label}: {net['transposes']} layout transposes and "
+                             f"{net['k5_launches']} K5 launches a forward")
+        if net["batch"] == 1 and net["ms"] > NORM_B1_SLACK * net["nchw_ms"]:
+            raise SystemExit(f"{label}: {net['ms']:.3f} ms a forward, the NCHW path "
+                             f"{net['nchw_ms']:.3f} ms")
+        if not net["bit_equal"]:
+            with open(os.path.join(HERE, "azbench", "workloads",
+                                   f"{net['net']}.selfplay.json")) as f:
+                limits = json.load(f)["limits"]
+            gap = net["against_reference"]["nhwc"]
+            if not all(gap[k] < limits[k] for k in ("policy_tv", "value_mae")):
+                raise SystemExit(f"{label}: not bit-equal to the NCHW net, and against the "
+                                 f"float32 reference {net['against_reference']}, beyond the "
+                                 f"cell's limits {limits}")
+    print(f"[19] K5 bit-equal to the plain chain in {len(result['kernel'])} cases; nets "
+          f"NHWC with K5 against NCHW; {time.time() - t0:.1f} s, on {card}", flush=True)
+    return result
+
+
 def jumbo_entry(jumbo, kernel, which) -> dict:
     """A kernel's ``go19_jumbo_b2048_*`` keys of the JSON line, from [14]."""
     times = jumbo[kernel]
@@ -2346,7 +2475,9 @@ def main() -> None:
     lap("[1]-[4]")
     # --- 5. The main path: go9 self-play through the bench.
     select, writer = tree_kernels.select_leaf_batched, scatter_kernels.write_rows
-    _, _, go9_launches = bench_run("[5] go9", card, "go9", BATCH, TIMED_MOVES, dev)
+    k5 = {}
+    with k5_counted("[5]", k5, "go9_selfplay"):
+        _, _, go9_launches = bench_run("[5] go9", card, "go9", BATCH, TIMED_MOVES, dev)
     launches = {"go9_selfplay": go9_launches}
 
     lap("[5]")
@@ -2473,8 +2604,9 @@ def main() -> None:
     # --- 7. gomoku13 self-play: K1 and K2 at T=381, A=169 on a real search.
     g_cfg = config_lib.gomoku13()
     g_engine = build_engine(g_cfg.env)
-    result, _, launches["gomoku13_selfplay"] = bench_run(
-        "[7] gomoku13", card, "gomoku13", BATCH, GOMOKU_TIMED_MOVES, dev)
+    with k5_counted("[7]", k5, "gomoku13_selfplay"):
+        result, _, launches["gomoku13_selfplay"] = bench_run(
+            "[7] gomoku13", card, "gomoku13", BATCH, GOMOKU_TIMED_MOVES, dev)
     check_tree("gomoku13 searched tree (int16 2-byte labels/liberties rows)",
                result.state.trees)
     del result
@@ -2483,14 +2615,16 @@ def main() -> None:
     lap("[7]")
     # --- 8. The training path: cli.train at go9 full width, the evaluator on.
     select.launches = writer.launches = 0
-    train, ckpt_dir, train_cfg = train_path(card, dev)
+    with k5_counted("[8]", k5, "go9_training"):
+        train, ckpt_dir, train_cfg = train_path(card, dev)
     eval_k1, eval_k2 = train["eval_launches"]
     launches["go9_training"] = (select.launches - eval_k1, writer.launches - eval_k2)
 
     lap("[8]")
     # --- 9. Matches between [8]'s checkpoints: cli.match and an eval game.
     select.launches = writer.launches = 0
-    matches, match_launches, game_launches = match_path(card, dev, ckpt_dir)
+    with k5_counted("[9]", k5, "go9_match"):
+        matches, match_launches, game_launches = match_path(card, dev, ckpt_dir)
     launches["go9_eval"] = (eval_k1 + game_launches[0], eval_k2 + game_launches[1])
     launches["go9_match"] = match_launches
 
@@ -2515,12 +2649,14 @@ def main() -> None:
     lap("[12]")
     # --- 13. cli.analysis, then the GUI's AI-vs-AI game at go19_jumbo width.
     select.launches = writer.launches = 0
-    gui, launches["go19_gui"] = gui_path(card, dev)
+    with k5_counted("[13]", k5, "go19_gui"):
+        gui, launches["go19_gui"] = gui_path(card, dev)
 
     lap("[13]")
     # --- 14. go19_jumbo self-play at B=2048 and training at batch 2048.
     select.launches = writer.launches = 0
-    jumbo, launches["go19_b2048"] = jumbo_path(card, dev)
+    with k5_counted("[14]", k5, "go19_b2048"):
+        jumbo, launches["go19_b2048"] = jumbo_path(card, dev)
     lap("[14]")
 
     # --- 15. The engine parity sweep: go9, gomoku13 and go19 on the card vs the CPU.
@@ -2530,19 +2666,26 @@ def main() -> None:
 
     # --- 16. The backfill evaluator on [8]'s checkpoints, against [8]'s rows.
     select.launches = writer.launches = 0
-    _, launches["go9_backfill"] = backfill_path(card, dev, train_cfg, ckpt_dir, train)
+    with k5_counted("[16]", k5, "go9_backfill"):
+        _, launches["go9_backfill"] = backfill_path(card, dev, train_cfg, ckpt_dir, train)
     shutil.rmtree(ckpt_dir)  # 24 MB a checkpoint; the CSVs stay
     lap("[16]")
 
     # --- 17. The root-visit histogram at go9, B=1024.
     select.launches = writer.launches = 0
-    _, launches["go9_visits"] = visits_path(card, dev)
+    with k5_counted("[17]", k5, "go9_visits"):
+        _, launches["go9_visits"] = visits_path(card, dev)
     lap("[17]")
 
     # --- 18. The self-play bench at go19_jumbo, and its CLI at dp=2.
-    _, bench_launches = bench_path(card, dev)
+    with k5_counted("[18]", k5, "go19_jumbo_bench"):
+        _, bench_launches = bench_path(card, dev)
     launches.update(bench_launches)
     lap("[18]")
+
+    # --- 19. K5 against the plain chain, the nets NHWC against NCHW.
+    norm = norm_path(card)
+    lap("[19]")
     print(f"chip_smoke: seconds by phase {json.dumps(laps)}; {time.time() - t_start:.1f} s "
           "in all", flush=True)
 
@@ -2628,6 +2771,23 @@ def main() -> None:
         "replaces": None,
         "max_abs_err": 0.0,
         **{f"{k}_{name}": v for k, r in score.items() for name, v in r.items()},
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "norm_act",
+        "route": "cuda",
+        "source": "alpha_zero_tpu_torch/csrc/norm_act.cu",
+        "replaces": None,
+        "max_abs_err": 0.0,
+        "launches": sum(n for n, _ in k5.values()),
+        "launches_by_path": {k: n for k, (n, _) in k5.items()},
+        "forwards_by_path": {k: f for k, (_, f) in k5.items()},
+        **{f"{x['case']}_c{x['channels']}_{x['variant']}_{name}": x[name]
+           for x in norm["kernel"] for name in ("ms", "plain_ms", "bound_ms")},
+        **{f"{n['net']}_b{n['batch']}_{name}": n[name]
+           for n in norm["nets"] for name in ("ms", "nchw_ms", "k5_launches", "bit_equal")},
+        **{f"{n['net']}_b{n['batch']}_{path}_{k}": v for n in norm["nets"]
+           for path, gap in n["against_reference"].items() for k, v in gap.items()},
         "bound_by": "bytes",
         "library_ms": None,
     }]}))

@@ -15,9 +15,9 @@ import torch
 from alpha_zero_tpu_torch import config as config_lib
 from alpha_zero_tpu_torch.models.resnet import build_network
 from alpha_zero_tpu_torch.envs.go import GoEngine
-from alpha_zero_tpu_torch.ops import score_kernels, scatter_kernels, tree_kernels
+from alpha_zero_tpu_torch.ops import norm_kernels, score_kernels, scatter_kernels, tree_kernels
 from alpha_zero_tpu_torch.search import mcts
-from alpha_zero_tpu_torch.tools import dma_probe, select_bench
+from alpha_zero_tpu_torch.tools import dma_probe, norm_bench, select_bench
 from alpha_zero_tpu_torch.tools.dma_probe import check_writer, tree_sets
 from alpha_zero_tpu_torch.tools.score_boards import played_boards, score_mismatches, snake_boards
 from alpha_zero_tpu_torch.tools.select_bench import FIELDS, synthetic_trees
@@ -666,3 +666,213 @@ def test_bench_on_the_card(cuda_device, monkeypatch):
     torch.testing.assert_close(last.search_pi.sum(-1), torch.ones(8))
     assert bool((last.root_visits <= 16).all())
     assert bool(result.last_legal.gather(1, last.move.long()[:, None]).all())
+
+
+# --- K5: the eval-mode norm with its ReLU and residual add (ops/norm_kernels.py).
+
+# (board side, channels) of each width a net normalizes at.
+_NORM_WIDTHS = {"go9": (9, 128), "go19_jumbo": (19, 256), "nbt_trunk": (19, 384),
+                "nbt_mid": (19, 192), "nbt_pool_mid": (19, 128)}
+
+
+@pytest.mark.parametrize("variant", ["a", "b", "c"])
+@pytest.mark.parametrize("width", sorted(_NORM_WIDTHS))
+@pytest.mark.parametrize("batch", [1, 37, 512])
+def test_norm_kernel_bit_equal_to_plain(variant, width, batch, cuda_device):
+    """K5 against the plain eval chain (F.batch_norm, torch.relu, the bf16
+    ``+``) on the card, on NCHW memory (the nets' chain before K5) and on
+    NHWC memory: every output bit for bit (the sum too in (c)); one launch
+    a call."""
+    side, c = _NORM_WIDTHS[width]
+    x, res = norm_bench.make_inputs(batch, side, c, cuda_device, seed=batch)
+    bn = norm_bench.make_bn(c, cuda_device, seed=c + batch)
+    before = norm_kernels.norm_act.launches
+    bad = norm_bench.check_variant(norm_bench.VARIANTS[variant], x, res, bn)
+    torch.cuda.synchronize()
+    assert bad == {"nchw": 0, "nhwc": 0}
+    assert norm_kernels.norm_act.launches == before + 1
+
+
+def test_norm_kernel_without_the_sum(cuda_device):
+    x, res = norm_bench.make_inputs(37, 19, 384, cuda_device)
+    bn = norm_bench.make_bn(384, cuda_device)
+    mode = norm_kernels.ADD_NORM_RELU
+    s, out = norm_kernels.norm_act(mode, x, bn, res, keep_sum=False)
+    ref = norm_kernels.norm_act_plain(mode, x, bn, res)[1]
+    assert s is None and torch.equal(norm_bench.bits(out), norm_bench.bits(ref))
+    assert out.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("variant", ["a", "b", "c"])
+def test_norm_kernel_is_one_launch_per_call(variant, cuda_device):
+    x, res = norm_bench.make_inputs(64, 19, 256, cuda_device)
+    bn = norm_bench.make_bn(256, cuda_device)
+    mode = norm_bench.VARIANTS[variant]
+    r = None if mode == norm_kernels.NORM_RELU else res
+    # The first profiler session of a process can record no device event at
+    # all; a second one is then taken.
+    per_call = (device_kernels(lambda: norm_kernels.norm_act(mode, x, bn, r), 5)
+                or device_kernels(lambda: norm_kernels.norm_act(mode, x, bn, r), 5))
+    assert [n for n, _ in per_call.values()] == [1.0], per_call
+    assert "norm_act_kernel" in next(iter(per_call))
+
+
+def test_norm_launches_skip_graph_capture_and_replay(cuda_device):
+    x, res = norm_bench.make_inputs(37, 9, 128, cuda_device)
+    bn = norm_bench.make_bn(128, cuda_device)
+    mode = norm_kernels.NORM_ADD_RELU
+    ref = norm_kernels.norm_act_plain(mode, x, bn, res)[1]
+    norm_kernels.norm_act(mode, x, bn, res)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = norm_kernels.norm_act.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, out = norm_kernels.norm_act(mode, x, bn, res)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert norm_kernels.norm_act.launches == before
+    assert torch.equal(norm_bench.bits(out), norm_bench.bits(ref))
+
+
+def test_norm_kernel_rejects_bad_cuda_inputs(cuda_device):
+    x, res = norm_bench.make_inputs(4, 9, 128, cuda_device)
+    bn = norm_bench.make_bn(128, cuda_device)
+    norm = norm_kernels.norm_act
+    before = norm.launches
+    with pytest.raises(ValueError, match="NHWC"):
+        norm(norm_kernels.NORM_RELU, x.contiguous(), bn)
+    with pytest.raises(ValueError, match="NHWC"):
+        norm(norm_kernels.NORM_ADD_RELU, x, bn, res.contiguous())
+    with pytest.raises(TypeError, match="bfloat16"):
+        norm(norm_kernels.NORM_RELU, x.float(), bn)
+    with pytest.raises(ValueError, match="cuda"):
+        norm(norm_kernels.NORM_RELU, x, norm_bench.make_bn(128, "cpu"))
+    with pytest.raises(ValueError, match="cpu"):
+        norm(norm_kernels.NORM_ADD_RELU, x, bn, res.cpu())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        norm(norm_kernels.NORM_RELU, x[:, :12].contiguous(memory_format=torch.channels_last),
+             norm_bench.make_bn(12, cuda_device))
+    with pytest.raises(ValueError, match="residual"):
+        norm(norm_kernels.NORM_RELU, x, bn, res)
+    assert norm.launches == before
+
+
+def _cell_net(name, device):
+    """The cell's bf16 eval net on the card with the weights the benchmark's
+    reference draws and calibrates from seed 1, the reference module, its
+    config and the cell's limits."""
+    import importlib
+    import json
+    import os
+
+    from azbench.entries.selfplay import net_config, program_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "azbench", "configs", f"{name}.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(root, "azbench", "workloads", f"{name}.selfplay.json")) as f:
+        limits = json.load(f)["limits"]
+    ref = importlib.import_module(f"azbench.reference.nets.{config['net']}")
+    cfg, ncfg = program_config(config), net_config(config)
+    weights = ref.calibrated_weights(ncfg, 1, device)
+    net = build_network(cfg.env, cfg.network, device=device)
+    missing, unexpected = net.load_state_dict(weights, strict=False)
+    assert not unexpected and all(k.endswith("num_batches_tracked") for k in missing)
+    return net, ref, ncfg, weights, limits
+
+
+# K5 launches and plain norms a forward: every norm of go19_jumbo's trunk
+# (the stem's and two a block) but the heads' 2- and 1-channel ones; every
+# norm of b18c384nbt, whose head widths are multiples of 8 too.
+_NET_NORMS = {"go19_jumbo": (39, 2), "go19_b18c384nbt": (117, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(_NET_NORMS))
+def test_eval_net_nhwc_path_against_the_nchw_path(name, cuda_device):
+    """The cell's eval net, NHWC with K5, against the same weights laid out
+    NCHW, which take the plain norms and cuDNN's layout transposes (the
+    path before K5), on 64 positions laid out as the engine's: bit-equal
+    where cuDNN picks the same convolution kernels for both layouts; where
+    it does not, each within the cell's ``policy_tv`` and ``value_mae``
+    limits of the float32 reference, the NHWC net's gap printed beside the
+    NCHW net's. ``net.fused_norms`` and ``net.plain_norms`` count K5 on
+    every trunk norm, as many as it launched."""
+    net, ref, ncfg, weights, limits = _cell_net(name, cuda_device)
+    old = norm_bench.nchw_twin(net)
+    obs = ref.calibration_boards(ncfg, 64, 99, cuda_device)
+    with torch.no_grad():
+        before = norm_kernels.norm_act.launches
+        trace.enable()
+        try:
+            new_out = net(obs)
+        finally:
+            record = trace.disable()
+        launches = norm_kernels.norm_act.launches - before
+        old_out = old(obs)
+        assert norm_kernels.norm_act.launches - before == launches
+    counts = {}
+    for c in record.counts:
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    fused, plain = _NET_NORMS[name]
+    assert (counts.get("net.fused_norms", 0), counts.get("net.plain_norms", 0)) == (fused, plain)
+    assert launches == fused
+    if all(torch.equal(a, b) for a, b in zip(new_out, old_out)):
+        print(f"{name}: the NHWC net with K5 is bit-equal to the NCHW net")
+        return
+    ref_logits, ref_values = ref.evaluate(weights, ncfg, obs)
+    ref_prior = torch.softmax(ref_logits, dim=-1)
+    gaps = {}
+    for label, out in (("nhwc", new_out), ("nchw", old_out)):
+        tv = float(0.5 * (torch.softmax(out.pi_logits, -1) - ref_prior).abs().sum(-1).mean())
+        gaps[label] = (tv, float((out.value - ref_values).abs().mean()))
+    print(f"{name}: not bit-equal (cuDNN's kernels differ between the layouts); policy_tv, "
+          f"value_mae against the float32 reference: {gaps}; limits {limits}")
+    for tv, mae in gaps.values():
+        assert tv < limits["policy_tv"] and mae < limits["value_mae"]
+
+
+def test_train_mode_and_float32_nets_take_the_plain_norms(cuda_device):
+    """A bf16 NHWC net switched to train mode, and a float32 eval net (laid
+    out NCHW), launch no K5."""
+    cfg = config_lib.go9()
+    net_cfg = dataclasses.replace(cfg.network, num_res_blocks=2)
+    obs = (torch.rand((8, 9, 9, cfg.env.num_planes), device=cuda_device) < 0.3).to(torch.int8)
+    bf16 = build_network(cfg.env, net_cfg, device=cuda_device, seed=0)
+    assert bf16.blocks[0].conv1.weight.is_contiguous(memory_format=torch.channels_last)
+    f32 = build_network(cfg.env, net_cfg, device=cuda_device, seed=0, dtype="float32")
+    assert all(p.is_contiguous() for p in f32.parameters())
+    before = norm_kernels.norm_act.launches
+    with torch.no_grad():
+        bf16(obs)
+        assert norm_kernels.norm_act.launches == before + 5
+        f32(obs)
+        bf16.train()(obs)
+    assert norm_kernels.norm_act.launches == before + 5
+
+
+
+def test_a_bf16_net_laid_out_on_the_cpu_runs_k5_on_the_card(cuda_device):
+    """A bf16 eval net that ``to_inference_dtype`` laid out on the CPU
+    (NCHW weights) and that was then moved to the card takes K5 on every
+    trunk norm all the same: the planes come in as an NHWC view, so cuDNN
+    hands on NHWC activations, and no norm falls back to the plain ops.
+    The evaluator, which is handed such nets, lays its copies out on the
+    card: NHWC weights too, and K5 on every trunk norm."""
+    from alpha_zero_tpu_torch.eval.evaluator import Evaluator
+    from alpha_zero_tpu_torch.models.resnet import to_inference_dtype
+
+    cfg = config_lib.go9()
+    net_cfg = dataclasses.replace(cfg.network, num_res_blocks=2)
+    obs = (torch.rand((8, 9, 9, cfg.env.num_planes), device=cuda_device) < 0.3).to(torch.int8)
+    master = build_network(cfg.env, net_cfg, device="cpu", seed=0, dtype="float32")
+    moved = to_inference_dtype(copy.deepcopy(master), "bfloat16").eval().to(cuda_device)
+    assert all(p.is_contiguous() for p in moved.parameters())
+    evaluator = Evaluator(build_engine(cfg.env), master, cfg.search, "bfloat16",
+                          device=cuda_device)
+    before = norm_kernels.norm_act.launches
+    for net in (moved, evaluator.latest_net, evaluator.prev_net):
+        with torch.no_grad():
+            net(obs)
+    assert norm_kernels.norm_act.launches == before + 3 * 5
+    for net in (evaluator.latest_net, evaluator.prev_net):
+        assert net.blocks[0].conv1.weight.is_contiguous(memory_format=torch.channels_last)

@@ -11,6 +11,8 @@ boards (``_calibrate``), so that the logits spread as a trained net's do
 and the values do not sit at +-1.
 """
 
+import contextlib
+import copy
 import dataclasses
 import hashlib
 
@@ -236,7 +238,10 @@ def test_spans_and_counters_nest_under_net():
     totals = {}
     for c in record.counts:
         totals[c.name] = totals.get(c.name, 0) + c.n
-    assert totals == {"net.positions": 12, "net.gpool_sites": 2 * (POOLING_BLOCKS + 2)}
+    # Every norm of the net runs once a call, here on the CPU as plain ops.
+    norms = sum(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules())
+    assert totals == {"net.positions": 12, "net.gpool_sites": 2 * (POOLING_BLOCKS + 2),
+                      "net.plain_norms": 2 * norms}
 
     with torch.no_grad():
         net(obs[0])  # tracing off: nothing recorded
@@ -308,3 +313,67 @@ def test_the_resnet_is_the_parents_bit_for_bit(name, dtype):
     assert type(net) is AlphaZeroNet and len(net.state_dict()) == 48
     assert (_digest(net.state_dict().items()),
             _digest([("pi", out.pi_logits), ("v", out.value)])) == RESNET_DIGESTS[name, dtype]
+
+
+def test_each_block_hands_on_the_next_norms_activation():
+    """The blocks map a norm's activation to their residual branch, and
+    ``residual_stack`` adds each branch and applies the norm after it (the
+    next block's ``bn_in``, the next inner block's ``bn1``, the block's
+    ``bn_out``, the trunk's ``trunk_bn``) in one pass: the trunk computes
+    what the plain chain of blocks computes, norm by norm, in eval and in
+    train mode (the running statistics moved alike)."""
+    env, net_cfg, net = _small_net(5)
+    obs = _boards(env, 6, 8)
+
+    def chain(net, x):
+        from torch.nn import functional as F
+
+        def act(bn, t):
+            return F.relu(bn(t))
+
+        y = net.stem_conv(x.permute(0, 3, 1, 2).to(net.stem_conv.weight.dtype))
+        for block in net.blocks:
+            t = block.conv_in(act(block.bn_in, y))
+            for inner in block.inner:
+                a = act(inner.bn1, t)
+                h = inner.conv1(a)
+                if isinstance(inner, nbt.PoolingInnerBlock):
+                    g = act(inner.gbn, inner.gconv(a))
+                    h = h + inner.gfc(nbt.gpool(g, inner.scale))[:, :, None, None]
+                t = t + inner.conv2(act(inner.bn2, h))
+            y = y + block.conv_out(act(block.bn_out, t))
+        return act(net.trunk_bn, y)
+
+    def trunk(net, x):
+        with trace_counts() as counts:
+            y = net.stem_conv(x.permute(0, 3, 1, 2).to(net.stem_conv.weight.dtype))
+            norms = [b.bn_in for b in net.blocks] + [net.trunk_bn]
+            a = nbt.residual_stack(y, net.blocks, norms)
+        return a, counts
+
+    with torch.no_grad():
+        a, counts = trunk(net, obs)
+        assert torch.equal(a, chain(net, obs))
+    norms = sum(isinstance(m, torch.nn.BatchNorm2d) for m in net.modules())
+    # Every norm but the heads' three.
+    assert counts == {"net.plain_norms": norms - 3, "net.gpool_sites": POOLING_BLOCKS}
+    twin = copy.deepcopy(net).train()
+    net.train()
+    assert torch.equal(trunk(net, obs)[0], chain(twin, obs))
+    for m, t in zip(net.modules(), twin.modules()):
+        if isinstance(m, torch.nn.BatchNorm2d):
+            assert torch.equal(m.running_mean, t.running_mean)
+            assert torch.equal(m.running_var, t.running_var)
+
+
+@contextlib.contextmanager
+def trace_counts():
+    """The counters' totals recorded inside the block."""
+    totals = {}
+    trace.enable()
+    try:
+        yield totals
+    finally:
+        for c in trace.disable().counts:
+            totals[c.name] = totals.get(c.name, 0) + c.n
+

@@ -115,6 +115,85 @@ def test_bfloat16_nets_keep_batchnorm_in_float32():
                            master.stem_bn.running_var.bfloat16().float())
 
 
+def _nhwc(t: torch.Tensor) -> bool:
+    return t.is_contiguous(memory_format=torch.channels_last) and not t.is_contiguous()
+
+
+def test_load_state_dict_keeps_nhwc_conv_weights(monkeypatch):
+    """A bf16 eval net that ``to_inference_dtype`` lays out NHWC (on the
+    CPU only through the patched rule) keeps that layout through a later
+    ``load_state_dict`` of float32 master weights, as the benchmark entry's
+    and the pipeline's ``play_net``'s: every 3x3 conv weight stays
+    channels_last, and every tensor holds the master's values."""
+    from alpha_zero_tpu_torch.models import resnet
+
+    cfg = config_lib.go9()
+    net_cfg = dataclasses.replace(cfg.network, num_res_blocks=2, num_filters=16)
+    monkeypatch.setattr(resnet, "lays_out_nhwc", lambda net, dtype, device: True)
+    net = build_network(cfg.env, net_cfg, device="cpu", seed=0)
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert all(_nhwc(m.weight) for m in convs if m.kernel_size == (3, 3))
+    master = build_network(cfg.env, net_cfg, device="cpu", seed=5, dtype="float32")
+    net.load_state_dict(master.state_dict())
+    assert all(_nhwc(m.weight) for m in convs if m.kernel_size == (3, 3))
+    for name, value in net.state_dict().items():
+        assert torch.equal(value, master.state_dict()[name].to(value.dtype)), name
+
+
+def test_only_unsharded_bf16_nets_on_the_card_are_laid_out_nhwc():
+    """The rule ``to_inference_dtype`` follows: a bf16 net with no model
+    axis on the card; not a float32 net (the learner's masters, trained in
+    train mode, and float32 eval nets), not a net with the model axis
+    (whose column-parallel convs gather along dim 1), not on the CPU, where
+    every net keeps the NCHW layout and numbers it had."""
+    from alpha_zero_tpu_torch.models.resnet import lays_out_nhwc
+
+    cfg = config_lib.go9()
+    whole = AlphaZeroNet(82, 9, 17, num_res_blocks=1, num_filters=16, num_fc_units=16)
+    sharded = AlphaZeroNet(82, 9, 17, num_res_blocks=1, num_filters=16, num_fc_units=16, mdl=2)
+    assert sharded.sharded_names()
+    assert lays_out_nhwc(whole, "bfloat16", "cuda")
+    assert lays_out_nhwc(whole, torch.bfloat16, torch.device("cuda", 0))
+    assert not lays_out_nhwc(sharded, "bfloat16", "cuda")
+    assert not lays_out_nhwc(whole, "float32", "cuda")
+    assert not lays_out_nhwc(whole, "bfloat16", "cpu")
+    for dtype in ("bfloat16", "float32"):
+        net = build_network(cfg.env, cfg.network, device="cpu", seed=0, dtype=dtype)
+        assert not any(_nhwc(p) for p in net.parameters())
+    train = build_network(cfg.env, cfg.network, device="cpu", seed=0, dtype="float32").train()
+    assert not any(_nhwc(p) for p in train.parameters())
+
+
+def test_norms_of_a_model_axis_net_run_plain_on_the_card():
+    """A net with the model axis marks each of its norms ``plain_on_card``:
+    its column-parallel convs gather NCHW, so its eval norms take the plain
+    ops on the card and not K5; every norm of a whole net, ResNet or nbt,
+    goes to K5 on the card (``resnet._fused``)."""
+    from alpha_zero_tpu_torch.models.resnet import BatchNorm
+
+    whole = AlphaZeroNet(82, 9, 17, num_res_blocks=2, num_filters=16, num_fc_units=16)
+    sharded = AlphaZeroNet(82, 9, 17, num_res_blocks=2, num_filters=16, num_fc_units=16, mdl=2)
+    cfg = config_lib.get_config("go19_b18c384nbt")
+    nbt = build_network(cfg.env, dataclasses.replace(cfg.network, num_res_blocks=2,
+                                                      nbt_gpool_blocks="2"),
+                        device="cpu", seed=0, dtype="float32")
+    for net, plain in ((whole, False), (sharded, True), (nbt, False)):
+        norms = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        assert norms and all(type(m) is BatchNorm and m.plain_on_card is plain for m in norms)
+
+
+def test_flatten_hwc_on_nhwc_memory_is_the_same_order():
+    """The heads flatten in HWC order whatever the memory layout, so Flax
+    Dense kernels (``params_from_flax``) load unchanged onto an NHWC net;
+    on NHWC memory the flatten is a view."""
+    t = torch.randn((3, 2, 9, 9))
+    nhwc = t.contiguous(memory_format=torch.channels_last)
+    flat = AlphaZeroNet._flatten_hwc(nhwc)
+    assert torch.equal(AlphaZeroNet._flatten_hwc(t), flat)
+    assert flat.data_ptr() == nhwc.data_ptr()
+    assert torch.equal(flat[1].view(9, 9, 2), t[1].permute(1, 2, 0))
+
+
 @pytest.fixture(scope="module")
 def go9_ckpt_variables():
     """The Flax variables of ``logs/go/9x9/ckpt_20000``."""
