@@ -193,10 +193,6 @@ extern "C" int azt_norm_act(int mode, const void* x, const void* res, const void
   const int groups = channels / kVec;
   if (channels % kVec != 0 || groups < 1 || groups > kMaxGroups || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == kNormRelu)
     launch<kNormRelu>(x, res, weight, bias, mean, var, eps, rows, groups, out, sum_out, device, s);
@@ -206,9 +202,7 @@ extern "C" int azt_norm_act(int mode, const void* x, const void* res, const void
   else
     launch<kAddNormRelu>(x, res, weight, bias, mean, var, eps, rows, groups, out, sum_out, device,
                          s);
-  err = cudaGetLastError();
-  if (prev != device) cudaSetDevice(prev);
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* azt_cuda_error_string(int code) {

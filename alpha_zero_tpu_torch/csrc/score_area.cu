@@ -140,20 +140,14 @@ score_area_kernel(const int8_t* __restrict__ board, const uint8_t* __restrict__ 
 // board: int8 [B, N, N]; mask: bool [B] or null (every board); out: f32
 // [3, B]. Returns a cudaError_t.
 extern "C" int azt_score_area(const void* board, const void* mask, int B, int N,
-                              float komi, void* out, int device, void* stream) {
+                              float komi, void* out, void* stream) {
   if (B == 0) return 0;
   if (N < 1 || N > kMaxSide) return static_cast<int>(cudaErrorInvalidValue);
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + kBoards - 1) / kBoards;
   score_area_kernel<<<blocks, kWarp * kBoards, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(board), static_cast<const uint8_t*>(mask), B, N, komi,
       static_cast<float*>(out));
-  err = cudaGetLastError();
-  if (prev != device) cudaSetDevice(prev);
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* azt_cuda_error_string(int code) {

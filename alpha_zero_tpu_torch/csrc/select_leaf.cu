@@ -372,11 +372,7 @@ extern "C" int azt_select_leaf(
       path_cap >= static_cast<int>(kSlotMask) || smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
+  cudaError_t err = cudaSuccess;
   // A lane that needs more than the default 48 KB gets the opt-in size, set
   // once per device and size (outside any graph capture: the first call at
   // a size runs before one).
@@ -397,7 +393,6 @@ extern "C" int azt_select_leaf(
         static_cast<uint8_t*>(hit), static_cast<float*>(masks));
     err = cudaGetLastError();
   }
-  if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
 

@@ -1,10 +1,21 @@
-"""Builds the port's CUDA kernels with ``nvcc`` and loads them with ctypes.
+"""Builds the port's CUDA kernels with ``nvcc``, loads them with ctypes and
+launches them: the one path from a wrapper in ``ops/`` to its kernel.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, ``build/kernels/lib<name>-<hash>.so`` at the repository
 root. The hash covers the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing is built when a
 module is imported: the first call that launches a kernel builds it.
+
+A wrapper names its library by a signature table, ``(name, {entry:
+argtypes})``: each ``extern "C" int`` entry of ``csrc/<name>.cu`` with the
+ctypes types of its arguments before the stream, which every entry takes
+last (pointers as ``c_void_p`` or ``POINTER``, so that ctypes does not cut
+them to 32 bits). Every source also exports ``azt_cuda_error_string``.
+``launch`` makes the tensors' device current, passes its current stream,
+raises on an error code and says whether the launch counts: a call made
+while the stream is being captured into a CUDA graph only records the
+kernel, and the graph's replays do not pass through here.
 """
 
 from __future__ import annotations
@@ -15,7 +26,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -78,3 +91,41 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all()
     return ctypes.CDLL(str(path))
+
+
+Library = Tuple[str, Dict[str, Sequence[type]]]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _declare(library: Library) -> ctypes.CDLL:
+    name, signatures = library
+    lib = load(name)
+    for entry, argtypes in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.azt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.azt_cuda_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib
+    return lib
+
+
+def launch(library: Library, entry: str, device: torch.device, *args) -> bool:
+    """Calls ``entry`` of ``library`` with ``args`` and the current stream
+    of ``device``, with ``device`` made current if it is not. Raises
+    ``RuntimeError`` on a non-zero code. Returns whether the launch counts:
+    False while the stream is being captured."""
+    lib = _loaded.get(library[0]) or _declare(library)
+    if device.index in (None, torch.cuda.current_device()):
+        return _call(lib, entry, device, args)
+    with torch.cuda.device(device):
+        return _call(lib, entry, device, args)
+
+
+def _call(lib: ctypes.CDLL, entry: str, device: torch.device, args) -> bool:
+    rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: "
+                           + lib.azt_cuda_error_string(rc).decode())
+    return not torch.cuda.is_current_stream_capturing()

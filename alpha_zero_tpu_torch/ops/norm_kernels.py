@@ -24,7 +24,6 @@ graph's replays.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -35,20 +34,11 @@ from alpha_zero_tpu_torch.ops import _build
 NORM_RELU, NORM_ADD_RELU, ADD_NORM_RELU = 0, 1, 2
 MAX_CHANNELS = 2048  # csrc/norm_act.cu: C / 8 <= 256
 
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (pointers and
-    the stream as c_void_p, so ctypes does not cut them to 32 bits)."""
-    lib = _build.load("norm_act")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # mode, x, res, weight, bias, mean, var, eps, rows, C, out, sum_out, device, stream
-    lib.azt_norm_act.argtypes = [i] + [p] * 6 + [ctypes.c_float, ctypes.c_longlong, i,
-                                                 p, p, i, p]
-    lib.azt_norm_act.restype = i
-    lib.azt_cuda_error_string.argtypes = [i]
-    lib.azt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIBRARY = "norm_act", {
+    # mode, x, res, weight, bias, mean, var, eps, rows, C, out, sum_out, device
+    "azt_norm_act": [_I] + [_P] * 6 + [ctypes.c_float, ctypes.c_longlong, _I, _P, _P, _I],
+}
 
 
 def norm_act_plain(mode: int, x: torch.Tensor, bn, res: Optional[torch.Tensor] = None
@@ -114,17 +104,12 @@ def norm_act(mode: int, x: torch.Tensor, bn, res: Optional[torch.Tensor] = None,
     out = torch.empty_like(x, memory_format=torch.channels_last)
     s = (torch.empty_like(x, memory_format=torch.channels_last)
          if mode == ADD_NORM_RELU and keep_sum else None)
-    lib = _library()
-    rc = lib.azt_norm_act(
-        mode, x.data_ptr(), None if res is None else res.data_ptr(), bn.weight.data_ptr(),
-        bn.bias.data_ptr(), bn.running_mean.data_ptr(), bn.running_var.data_ptr(), bn.eps,
-        x.numel() // x.shape[1], x.shape[1], out.data_ptr(),
-        None if s is None else s.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("norm_act kernel launch failed: "
-                           + lib.azt_cuda_error_string(rc).decode())
-    if x.numel() and not torch.cuda.is_current_stream_capturing():
+    if _build.launch(
+            _LIBRARY, "azt_norm_act", dev,
+            mode, x.data_ptr(), None if res is None else res.data_ptr(), bn.weight.data_ptr(),
+            bn.bias.data_ptr(), bn.running_mean.data_ptr(), bn.running_var.data_ptr(), bn.eps,
+            x.numel() // x.shape[1], x.shape[1], out.data_ptr(),
+            None if s is None else s.data_ptr(), dev.index) and x.numel():
         norm_act.launches += 1
     return s, out
 

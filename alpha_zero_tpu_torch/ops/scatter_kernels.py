@@ -32,7 +32,6 @@ nor are the graph's replays.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Sequence
 
@@ -44,22 +43,11 @@ MAX_ARRAYS = 16  # arrays in one call (csrc/scatter_rows.cu:kMaxArrays)
 BULK_ALIGN = 16  # bytes: what cp.async.bulk needs of addresses and sizes
 BULK_LANE_BYTES = 28 * 1024  # most row bytes a lane stages (kBulkLaneBytes)
 
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (pointers and
-    the stream as c_void_p, so ctypes does not cut them to 32 bits)."""
-    lib = _build.load("scatter_rows")
-    u64 = ctypes.POINTER(ctypes.c_uint64)
-    for fn in (lib.azt_scatter_rows, lib.azt_scatter_rows_bulk):
-        # n, dst[n], src[n], row_bytes[n], T[n], widx, B, stream
-        fn.argtypes = [ctypes.c_int, u64, u64, ctypes.POINTER(ctypes.c_int64),
-                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.azt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.azt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+# n, dst[n], src[n], row_bytes[n], T[n], widx, B
+_SET = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+        ctypes.c_int]
+_LIBRARY = "scatter_rows", {"azt_scatter_rows": _SET, "azt_scatter_rows_bulk": _SET}
 
 
 # ---------------------------------------------------------------------------
@@ -159,18 +147,8 @@ def _write(entry: str, wrapper, arrays, rows, widx: torch.Tensor) -> None:
     row_bytes = (ctypes.c_int64 * n)(*(math.prod(r.shape[1:]) * r.element_size()
                                        for _, r in live))
     slots = (ctypes.c_int * n)(*(a.shape[1] for a, _ in live))
-    lib = _library()
-    dev = widx.device
-    args = (n, dst, src, row_bytes, slots, widx.data_ptr(), widx.shape[0])
-    if dev.index in (None, torch.cuda.current_device()):
-        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: "
-                           + lib.azt_cuda_error_string(rc).decode())
-    if not torch.cuda.is_current_stream_capturing():  # a capture records, launches nothing
+    if _build.launch(_LIBRARY, entry, widx.device, n, dst, src, row_bytes, slots,
+                     widx.data_ptr(), widx.shape[0]):
         wrapper.launches += 1
 
 

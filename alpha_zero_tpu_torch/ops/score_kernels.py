@@ -15,7 +15,6 @@ graph's replays.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -23,19 +22,11 @@ from alpha_zero_tpu_torch.ops import _build
 
 MAX_CELLS = 1024  # the largest N * N the kernel takes: N <= 32 (csrc/score_area.cu:kMaxSide)
 
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (pointers and
-    the stream as c_void_p, so ctypes does not cut them to 32 bits)."""
-    lib = _build.load("score_area")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # board, mask, B, N, komi, out, device, stream
-    lib.azt_score_area.argtypes = [p, p, i, i, ctypes.c_float, p, i, p]
-    lib.azt_score_area.restype = i
-    lib.azt_cuda_error_string.argtypes = [i]
-    lib.azt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIBRARY = "score_area", {
+    # board, mask, B, N, komi, out
+    "azt_score_area": [_P, _P, _I, _I, ctypes.c_float, _P],
+}
 
 
 def _check_inputs(engine, board: torch.Tensor, mask) -> None:
@@ -75,15 +66,9 @@ def score_area(engine, board: torch.Tensor, mask: torch.Tensor | None = None) ->
         raise ValueError(f"no scoring kernel for device {dev}")
     b = board.shape[0]
     out = torch.empty((3, b), dtype=torch.float32, device=dev)
-    lib = _library()
-    rc = lib.azt_score_area(
-        board.data_ptr(), None if mask is None else mask.data_ptr(), b,
-        engine.board_size, engine.komi, out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("score_area kernel launch failed: "
-                           + lib.azt_cuda_error_string(rc).decode())
-    if b and not torch.cuda.is_current_stream_capturing():
+    if _build.launch(_LIBRARY, "azt_score_area", dev,
+                     board.data_ptr(), None if mask is None else mask.data_ptr(), b,
+                     engine.board_size, engine.komi, out.data_ptr()) and b:
         score_area.launches += 1
     return out
 

@@ -14,7 +14,6 @@ counted, nor are the graph's replays.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -25,19 +24,11 @@ _VEC_ARGS = ("node_N", "node_W", "node_P", "parent_index",
              "action_from_parent", "node_done")
 _MAX_SLOTS = 65535  # the kernel packs a slot, an action and a step into 16 bits
 
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (pointers and
-    the stream as c_void_p, so ctypes does not cut them to 32 bits)."""
-    lib = _build.load("select_leaf")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # 7 inputs, B/T/A/path_cap, c_puct base/init, 3 outputs, device, stream.
-    lib.azt_select_leaf.argtypes = [p] * 7 + [i] * 4 + [f] * 2 + [p] * 3 + [i, p]
-    lib.azt_select_leaf.restype = i
-    lib.azt_cuda_error_string.argtypes = [i]
-    lib.azt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LIBRARY = "select_leaf", {
+    # 7 inputs, B/T/A/path_cap, c_puct base/init, 3 outputs, device
+    "azt_select_leaf": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P] * 3 + [_I],
+}
 
 
 def _check_inputs(vecs, child_P: torch.Tensor) -> Tuple[int, int, int]:
@@ -171,16 +162,10 @@ def select_leaf_batched(node_N, node_W, node_P, parent_index,
     ints = torch.empty((5, b), dtype=torch.int32, device=dev)
     hit = torch.empty((b,), dtype=torch.bool, device=dev)
     masks = torch.empty((2, b, t), dtype=torch.float32, device=dev)
-    lib = _library()
-    rc = lib.azt_select_leaf(
-        *(v.data_ptr() for v in vecs), child_P.data_ptr(),
-        b, t, a, path_cap, c_puct_base, c_puct_init,
-        ints.data_ptr(), hit.data_ptr(), masks.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("select_leaf kernel launch failed: "
-                           + lib.azt_cuda_error_string(rc).decode())
-    if b and not torch.cuda.is_current_stream_capturing():
+    if _build.launch(_LIBRARY, "azt_select_leaf", dev,
+                     *(v.data_ptr() for v in vecs), child_P.data_ptr(),
+                     b, t, a, path_cap, c_puct_base, c_puct_init,
+                     ints.data_ptr(), hit.data_ptr(), masks.data_ptr(), dev.index) and b:
         select_leaf_batched.launches += 1
     parent, action, child, depth = ints[:4]
     return parent, action, child, hit, masks[0], masks[1], depth, ints[4].view(torch.float32)

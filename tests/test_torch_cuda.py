@@ -128,34 +128,6 @@ def test_select_kernel_bit_equal_on_synthetic_trees(geometry, cut, cuda_device):
     assert int(ref[6].max()) == min(kw["path_cap"], t - 3)
 
 
-def test_select_is_one_kernel_launch_per_call(cuda_device):
-    args, t = _synthetic_args("go9", 64, cuda_device)
-    kw = dict(path_cap=t, c_puct_base=19652.0, c_puct_init=1.25)
-    per_call = device_kernels(lambda: tree_kernels.select_leaf_batched(*args, **kw), 5)
-    assert [n for n, _ in per_call.values()] == [1.0], per_call
-    assert "select_leaf_kernel" in next(iter(per_call))
-
-
-def test_select_launches_skip_graph_capture_and_replay(cuda_device):
-    """A call under CUDA-graph capture records the kernel and is not
-    counted; the replay runs it without the wrapper, and it is right."""
-    args, t = _synthetic_args("go9", 37, cuda_device)
-    kw = dict(path_cap=t, c_puct_base=19652.0, c_puct_init=1.25)
-    select = tree_kernels.select_leaf_batched
-    ref = tree_kernels.select_leaf_plain(*args, **kw)
-    select(*args, **kw)  # warm-up outside the capture
-    torch.cuda.synchronize()
-    before = select.launches
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = select(*args, **kw)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert select.launches == before
-    for o, r in zip(out, ref):
-        assert torch.equal(o, r)
-
-
 def test_select_kernel_rejects_bad_cuda_inputs(cuda_device):
     args, kw = _grown_trees(5, 16, 4, cuda_device)
     before = tree_kernels.select_leaf_batched.launches
@@ -233,24 +205,6 @@ def test_scatter_probe_runs_on_the_card(cuda_device):
     out = dma_probe.run_probe(64, 9, 82, reps=2, device=cuda_device)
     assert len(out["lines"]) == 9 and len(out["sets"]) == 5
     assert all(x["ms"] > 0 and x["graph_ms"] > 0 for x in out["lines"] + out["sets"])
-
-
-def test_scatter_launches_skip_graph_capture_and_replay(cuda_device):
-    """A call under CUDA-graph capture records the kernel and is not
-    counted; the replay runs it without the wrapper, and it writes."""
-    arr, rows, widx = _scatter_inputs(37, 17, 12, cuda_device, ragged=True)
-    ref = scatter_kernels.blend_scatter(arr, rows, widx)
-    kernel = scatter_kernels.scatter_rows
-    kernel(arr.clone(), rows, widx)  # warm-up outside the capture
-    torch.cuda.synchronize()
-    before = scatter_kernels.write_rows.launches
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        kernel(arr, rows, widx)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert scatter_kernels.write_rows.launches == before
-    assert torch.equal(arr, ref)
 
 
 def _ragged_widx(b, t, device, seed=3):
@@ -375,31 +329,6 @@ def test_bfloat16_net_card_matches_cpu(cuda_device):
     assert card_err[0] <= 2 * cpu_err[0] and card_err[1] <= 2 * cpu_err[1]
 
 
-def test_writer_is_one_kernel_launch_per_call(cuda_device):
-    arrays, rows, widx = _writer_case("go9_materialize", cuda_device)
-    per_call = device_kernels(lambda: scatter_kernels.write_rows(arrays, rows, widx), 5)
-    assert [n for n, _ in per_call.values()] == [1.0], per_call
-    assert "write_rows_kernel" in next(iter(per_call))
-
-
-def test_writer_launches_skip_graph_capture_and_replay(cuda_device):
-    arrays, rows, widx = _writer_case("go9_expand", cuda_device)
-    ref = [x.clone() for x in arrays]
-    scatter_kernels.write_rows_plain(ref, rows, widx)
-    writer = scatter_kernels.write_rows
-    writer([x.clone() for x in arrays], rows, widx)  # warm-up outside the capture
-    torch.cuda.synchronize()
-    before = writer.launches
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        writer(arrays, rows, widx)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert writer.launches == before
-    for got, r in zip(arrays, ref):
-        assert torch.equal(got, r)
-
-
 def test_selfplay_step_launches_writer_twice_per_simulation(cuda_device):
     engine, net, search, resign = _small_setup(9, 16, cuda_device)
     step = selfplay.make_selfplay_step(engine, net, search, resign, device=cuda_device)
@@ -412,16 +341,21 @@ def test_selfplay_step_launches_writer_twice_per_simulation(cuda_device):
         assert scatter_kernels.write_rows.launches - before == 2 * search.max_new_sims
 
 
-def test_bulk_writer_bit_equal_on_16_byte_rows(cuda_device):
-    """K3 on a set of rows made of whole 16-byte units in four dtypes."""
-    gen = torch.Generator(device=cuda_device).manual_seed(6)
+def _bulk_set(device):
+    """(arrays, rows, widx): rows of whole 16-byte units in four dtypes."""
+    gen = torch.Generator(device=device).manual_seed(6)
     arrays, rows = [], []
     for row_shape, dtype in (((128,), torch.float32), ((16,), torch.int8),
                              ((8,), torch.int16), ((4, 4), torch.int32)):
         for shape, out in (((37, 17) + row_shape, arrays), ((37,) + row_shape, rows)):
             out.append(torch.randint(-100, 100, shape, generator=gen,
-                                     device=cuda_device).to(dtype))
-    widx = _ragged_widx(37, 17, cuda_device)
+                                     device=device).to(dtype))
+    return arrays, rows, _ragged_widx(37, 17, device)
+
+
+def test_bulk_writer_bit_equal_on_16_byte_rows(cuda_device):
+    """K3 on a set of rows made of whole 16-byte units in four dtypes."""
+    arrays, rows, widx = _bulk_set(cuda_device)
     before = scatter_kernels.write_rows_bulk.launches
     check_writer(scatter_kernels.write_rows_bulk, arrays, rows, widx)
     torch.cuda.synchronize()
@@ -450,12 +384,7 @@ def test_score_kernel_bit_equal_to_plain(n, batch, cuda_device):
     assert torch.equal(out[2], torch.where(mask, engine.score(boards.cpu()).to(cuda_device), 0.0))
 
 
-def test_score_kernel_is_one_launch_and_rejects_large_boards(cuda_device):
-    engine = GoEngine(board_size=9)
-    boards = snake_boards(9).to(cuda_device)
-    per_call = device_kernels(lambda: score_kernels.score_area(engine, boards), 5)
-    assert [n for n, _ in per_call.values()] == [1.0], per_call
-    assert "score_area_kernel" in next(iter(per_call))
+def test_score_kernel_rejects_large_boards(cuda_device):
     before = score_kernels.score_area.launches
     with pytest.raises(ValueError, match="1024"):
         score_kernels.score_area(GoEngine(board_size=33),
@@ -703,37 +632,6 @@ def test_norm_kernel_without_the_sum(cuda_device):
     assert out.is_contiguous(memory_format=torch.channels_last)
 
 
-@pytest.mark.parametrize("variant", ["a", "b", "c"])
-def test_norm_kernel_is_one_launch_per_call(variant, cuda_device):
-    x, res = norm_bench.make_inputs(64, 19, 256, cuda_device)
-    bn = norm_bench.make_bn(256, cuda_device)
-    mode = norm_bench.VARIANTS[variant]
-    r = None if mode == norm_kernels.NORM_RELU else res
-    # The first profiler session of a process can record no device event at
-    # all; a second one is then taken.
-    per_call = (device_kernels(lambda: norm_kernels.norm_act(mode, x, bn, r), 5)
-                or device_kernels(lambda: norm_kernels.norm_act(mode, x, bn, r), 5))
-    assert [n for n, _ in per_call.values()] == [1.0], per_call
-    assert "norm_act_kernel" in next(iter(per_call))
-
-
-def test_norm_launches_skip_graph_capture_and_replay(cuda_device):
-    x, res = norm_bench.make_inputs(37, 9, 128, cuda_device)
-    bn = norm_bench.make_bn(128, cuda_device)
-    mode = norm_kernels.NORM_ADD_RELU
-    ref = norm_kernels.norm_act_plain(mode, x, bn, res)[1]
-    norm_kernels.norm_act(mode, x, bn, res)  # warm-up outside the capture
-    torch.cuda.synchronize()
-    before = norm_kernels.norm_act.launches
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _, out = norm_kernels.norm_act(mode, x, bn, res)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert norm_kernels.norm_act.launches == before
-    assert torch.equal(norm_bench.bits(out), norm_bench.bits(ref))
-
-
 def test_norm_kernel_rejects_bad_cuda_inputs(cuda_device):
     x, res = norm_bench.make_inputs(4, 9, 128, cuda_device)
     bn = norm_bench.make_bn(128, cuda_device)
@@ -876,3 +774,96 @@ def test_a_bf16_net_laid_out_on_the_cpu_runs_k5_on_the_card(cuda_device):
     assert norm_kernels.norm_act.launches == before + 3 * 5
     for net in (evaluator.latest_net, evaluator.prev_net):
         assert net.blocks[0].conv1.weight.is_contiguous(memory_format=torch.channels_last)
+
+
+# --- Every kernel's launch through ops/_build.py:launch.
+
+
+def _launch_case(case, device):
+    """``(wrapper, run, check, kernel)`` of one entry: the wrapper whose
+    ``.launches`` the call adds to, ``run(warm)`` making the call once
+    (a writer's warm-up call writes into copies) and returning what it
+    left, a check of that against the plain version, and the device
+    kernel's name."""
+    if case == "K1":
+        args, t = _synthetic_args("go9", 37, device)
+        kw = dict(path_cap=t, c_puct_base=19652.0, c_puct_init=1.25)
+        ref = tree_kernels.select_leaf_plain(*args, **kw)
+        return (tree_kernels.select_leaf_batched,
+                lambda warm: tree_kernels.select_leaf_batched(*args, **kw),
+                lambda out: all(torch.equal(o, r) for o, r in zip(out, ref)),
+                "select_leaf_kernel")
+    if case in ("K2_write_rows", "K3_write_rows_bulk"):
+        bulk = case == "K3_write_rows_bulk"
+        arrays, rows, widx = _bulk_set(device) if bulk else _writer_case("go9_expand", device)
+        writer = scatter_kernels.write_rows_bulk if bulk else scatter_kernels.write_rows
+        ref = [x.clone() for x in arrays]
+        scatter_kernels.write_rows_plain(ref, rows, widx)
+
+        def run(warm):
+            writer([x.clone() for x in arrays] if warm else arrays, rows, widx)
+            return arrays
+
+        return (writer, run, lambda out: all(torch.equal(o, r) for o, r in zip(out, ref)),
+                "write_rows_bulk_kernel" if bulk else "write_rows_kernel")
+    if case == "K2_scatter_rows":
+        arr, rows, widx = _scatter_inputs(37, 17, 12, device, ragged=True)
+        ref = scatter_kernels.blend_scatter(arr, rows, widx)
+        return (scatter_kernels.write_rows,
+                lambda warm: scatter_kernels.scatter_rows(arr.clone() if warm else arr, rows,
+                                                          widx),
+                lambda out: torch.equal(out, ref), "write_rows_kernel")
+    if case == "K4":
+        engine = GoEngine(board_size=9)
+        boards = torch.cat([played_boards(engine, 64, 54, 64, device),
+                            snake_boards(9).to(device)])
+        mask = torch.rand(boards.shape[0], generator=torch.Generator(device=device)
+                          .manual_seed(9), device=device) < 0.3
+        ref = score_kernels.score_area(engine, boards.cpu(), mask.cpu())
+        return (score_kernels.score_area,
+                lambda warm: score_kernels.score_area(engine, boards, mask),
+                lambda out: torch.equal(out.cpu(), ref), "score_area_kernel")
+    mode = norm_bench.VARIANTS[case[-1]]
+    x, res = norm_bench.make_inputs(37, 19, 256, device)
+    bn = norm_bench.make_bn(256, device)
+    r = None if mode == norm_kernels.NORM_RELU else res
+    ref = norm_kernels.norm_act_plain(mode, x, bn, r)
+    return (norm_kernels.norm_act, lambda warm: norm_kernels.norm_act(mode, x, bn, r),
+            lambda out: all((o is None) == (w is None) and (
+                o is None or torch.equal(norm_bench.bits(o), norm_bench.bits(w)))
+                for o, w in zip(out, ref)),
+            "norm_act_kernel")
+
+
+_LAUNCH_CASES = ["K1", "K2_write_rows", "K2_scatter_rows", "K3_write_rows_bulk", "K4",
+                 "K5_a", "K5_b", "K5_c"]
+
+
+@pytest.mark.parametrize("case", _LAUNCH_CASES)
+def test_launches_skip_graph_capture_and_replay(case, cuda_device):
+    """A call outside a capture counts one launch; a call under CUDA-graph
+    capture records the kernel and is not counted; the replay runs it
+    without the wrapper, and what it leaves equals the plain version's."""
+    wrapper, run, check, _ = _launch_case(case, cuda_device)
+    start = wrapper.launches
+    run(warm=True)
+    torch.cuda.synchronize()
+    assert wrapper.launches == start + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(warm=False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert wrapper.launches == start + 1
+    assert check(out)
+
+
+@pytest.mark.parametrize("case", _LAUNCH_CASES)
+def test_one_kernel_launch_per_call(case, cuda_device):
+    _, run, _, kernel = _launch_case(case, cuda_device)
+    # The first profiler session of a process can record no device event at
+    # all; a second one is then taken.
+    per_call = (device_kernels(lambda: run(False), 5)
+                or device_kernels(lambda: run(False), 5))
+    assert [n for n, _ in per_call.values()] == [1.0], per_call
+    assert kernel in next(iter(per_call))
